@@ -1,0 +1,125 @@
+"""Command line of the port (ref: the bowtie2/bowtie2-build wrappers).
+
+Usage:
+  python -m bowtie2_server_tpu_torch build <ref.fa> <index_base>
+  python -m bowtie2_server_tpu_torch align -x <index_base> -U <reads.fq>
+         [-S out.sam] [--end-to-end | --local] [--seed N] [--device cuda]
+
+`align` writes the same SAM records and alignment summary as
+`python -m bowtie2_server_tpu align` with the same options. Every other
+option of that CLI is refused: the rest of the option surface is ROADMAP
+Queue A item 14.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from collections import deque
+
+_BATCH = 2048   # reads per batch, the reference CLI's --batch default
+_REFUSED = ("not supported by the PyTorch port yet (ROADMAP Queue A item "
+            "14: serving and the rest of the CLI)")
+
+
+def cmd_build(args):
+    from .index.build import build_index
+    t0 = time.time()
+    idx = build_index(args.ref)
+    idx.save(args.base)
+    print(f"built index {args.base} ({idx.n} bp, {idx.n_refs} refs) "
+          f"in {time.time()-t0:.1f}s", file=sys.stderr)
+
+
+def cmd_align(args):
+    from .align.pipeline import SearchPolicy, UnpairedAligner
+    from .index.fm import FmIndex
+    from .io.fastq import iter_fastq, prefetch
+    from .io.metrics import AlnSummary
+    from .io.sam import sam_format_batch_native, sam_header, sam_record
+    from .utils.presets import preset_params
+
+    if args.index is None or args.U is None:
+        sys.exit("Error: align needs -x <index_base> and -U <reads.fq>")
+    idx = FmIndex.load(args.index)
+    sc, polkw = preset_params(None, args.local)
+    pol = SearchPolicy(khits=1, seed=args.seed, **polkw)
+    names = [n.split()[0] if n.split() else n for n in idx.ref_names]
+    out = open(args.S, "w") if args.S else sys.stdout
+    out.write(sam_header(names, idx.ref_lens, " ".join(sys.argv)))
+    summ = AlnSummary()
+    al = UnpairedAligner(idx, scoring=sc, policy=pol, device=args.device)
+
+    def batch_results():
+        # dispatch device work for the next batches before finishing the
+        # current one (ref: async readahead + worker overlap, pat.h:1558)
+        inflight = deque()
+        for batch in prefetch(iter_fastq(args.U, batch_size=_BATCH)):
+            inflight.append(al.align_async(batch))
+            if len(inflight) >= 3:
+                yield al.align_wait(inflight.popleft())
+        while inflight:
+            yield al.align_wait(inflight.popleft())
+
+    t0 = time.time()
+    n = 0
+    out_b = getattr(out, "buffer", None)
+    for recs in batch_results():
+        blob = (sam_format_batch_native(recs, names)
+                if getattr(recs, "soa", None) is not None else None)
+        if blob is not None:
+            if out_b is not None:
+                out.flush()
+                out_b.write(blob)
+            else:
+                out.write(blob.decode())
+            summ.add_unpaired_soa(recs)
+        else:
+            for r in recs:
+                out.write(sam_record(r, names) + "\n")
+                summ.add_unpaired(r)
+        n += len(recs)
+    dt = time.time() - t0
+    summ.print_summary(sys.stderr)
+    print(f"# {n} reads in {dt:.1f}s = {n/max(dt,1e-9):.0f} reads/s "
+          f"on {al.device}", file=sys.stderr)
+    if args.S:
+        out.close()
+
+
+def make_parser():
+    p = argparse.ArgumentParser(prog="bowtie2_server_tpu_torch",
+                                allow_abbrev=False)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    pb = sub.add_parser("build", allow_abbrev=False)
+    pb.add_argument("ref")
+    pb.add_argument("base")
+    pb.set_defaults(fn=cmd_build)
+
+    pa = sub.add_parser("align", allow_abbrev=False)
+    pa.add_argument("-x", "--index", dest="index", default=None)
+    pa.add_argument("-U", "--unpaired", dest="U", default=None)
+    pa.add_argument("-S", "--output", dest="S", default=None)
+    # --local / --end-to-end share one dest: the last one wins, as in the
+    # reference (bt2_search.cpp:1415/1419)
+    pa.add_argument("--local", dest="local", action="store_const",
+                    const=True, default=False)
+    pa.add_argument("--end-to-end", dest="local", action="store_const",
+                    const=False)
+    pa.add_argument("--seed", type=int, default=0)
+    pa.add_argument("--device", default="cuda",
+                    help="torch device the pipeline runs on (default cuda)")
+    pa.set_defaults(fn=cmd_align)
+    return p
+
+
+def main(argv=None):
+    args, extra = make_parser().parse_known_args(argv)
+    if extra:
+        sys.exit(f"Error: {' '.join(extra)}: {_REFUSED}")
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,916 @@
+"""Device-resident candidate generation + DP + selection — the hot path.
+Port of bowtie2_server_tpu/align/candgen.py, fast shape.
+
+One call of `fused_pipeline` runs a whole search batch on the device (ref:
+the reference's hot loop, bt2_search.cpp:3050-4197 multiseedSearchWorker +
+aligner_sw_driver.cpp:756 SwDriver::extendSeeds):
+
+  1. unpack the transfer-packed batch; the seed schedule
+  2. seed rounds through the k-mer position table (index/kmer.py), with
+     reseed rounds compacted to their few active lanes
+     (ref: bt2_search.cpp:3824-4089, seedBoostThresh gating)
+  3. position resolution of every surviving seed range — one gather
+  4. candidate dedup on (lane, diagonal) via one sort of a packed key
+     (ref: SwDriver seenDiags, aligner_sw_driver.h:300)
+  5. banded affine-gap DP over every interior candidate — the CUDA kernel
+     of ops/csrc/sw_banded.cu on the card (ops/sw_banded.py)
+  6. center-diagonal ungapped stats
+  7. per-read best + second-best-distinct-end selection via segment maxes
+     (ref: AlnSinkWrap best/secbest bookkeeping, aln_sink.h)
+
+Only the FAST shape is ported: every active read keeps at least one intact
+seed under any single substitution (nseeds >= ceil(Ls/ival)+1), so exact
+and 1-substitution hits come out of the seed lookup + DP without an FM
+pass. The general short-read shape (`has_short`), big indexes, `-N 1` and
+multi-device meshes raise NotImplementedError in `CandGen.dispatch`,
+naming the ROADMAP item that ports them.
+
+Everything is fixed-shape: hit, element and candidate sets are compacted
+to static capacities with overflow counters (no host synchronisation
+inside the pipeline); the host escalates capacities when a counter trips.
+I/O: ONE packed uint8 upload per batch (byte = code<<6 | min(qual,63);
+255 = pad/N), ONE small int32 metadata array, ONE packed int32 download.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..index import kmer as kmod
+from ..ops.sw import NEG_INF, SwConfig
+from ..ops.sw_banded import banded_dp
+
+INT32_MIN = -(1 << 31)
+# joined texts this long switch the reference package to its big-index
+# layout (uint32 rows, sampled SA) — not ported yet
+BIG_THRESHOLD = (1 << 31) - (1 << 23)
+
+
+def _pow2(n: int, lo: int = 1) -> int:
+    return max(lo, 1 << max(0, int(n - 1).bit_length()))
+
+
+class CandGenCfg(NamedTuple):
+    """Static shape/config parameters of one pipeline call: the fields of
+    the reference package's CandGenCfg that its fast shape reads (its
+    engine switch is gone: here the device of the tensors picks the DP
+    implementation)."""
+    B: int            # reads per batch (padded)
+    L: int            # padded read length
+    S: int            # max seeds per strand per round
+    R: int            # seed rounds (statically unrolled)
+    E: int            # max SA elements resolved per range
+    seed_len: int
+    K: int            # DP band width
+    NH: int           # hit-range capacity (level-1 compaction)
+    C_pre: int        # resolved-element capacity (pre-dedup)
+    C_max: int        # unique-candidate capacity
+    sw: SwConfig
+    kmer_mode: str = "sorted"  # 'cuckoo' or 'sorted'
+    kmer_steps: int = 1       # binary-search trip count of the sorted table
+    n_hi: int = 16            # key split of the seed table
+    n_lo: int = 6
+    bbits: int = 20
+    tbits: int = 0            # cuckoo bucket bits
+    salt: int = 0             # cuckoo hash salt
+    RS: int = 0               # reseed-round lane-compaction capacity
+                              # (0 = off)
+    boost_thresh: int = 300  # ref: bt2_search.cpp:4086 seedBoostThresh
+    mmtab_t: tuple = ()      # static mm-penalty-by-quality table
+    sched: tuple | None = None  # static per-round seed offsets (uniform
+                                # batches); None = per-read schedule
+    static_len: int = 0         # the uniform read length when sched is set
+    raw_len: int = 0            # >0: packed2 is raw [1, B, raw_len]
+    no_exact_up: bool = False   # --no-exact-upfront
+    no_1mm_up: bool = False     # --no-1mm-upfront
+    pack5: bool = False         # compact 5-row output layout of width
+                                # C_max+128 (vs the full 7 x C_max):
+                                # L<=256, K<=256, B <= 2^18
+
+
+class DeviceIndex(NamedTuple):
+    """Device tensors of the index that the fast shape reads. The FM
+    index itself stays on the host: the fast shape never reads it."""
+    joined: torch.Tensor        # [n] uint8 packed unambiguous text
+    joined_words: torch.Tensor  # [rows, 8] int64 (uint32 words) — 128
+                                # bases per row
+    run_starts: torch.Tensor    # [R] int32 unambiguous-run joined starts
+    run_ends: torch.Tensor      # [R] int32 run joined ends
+
+
+def _pack_joined_words(joined: np.ndarray) -> np.ndarray:
+    """2-bit pack into uint32 words (16 bases/word, LE), then reshape to
+    [rows, 8]: one row = 128 bases."""
+    n = len(joined)
+    nrows = (n + 127) // 128 + 3   # +3 pad rows: band window overhang
+    pad = np.zeros(nrows * 128, np.uint32)
+    pad[:n] = joined
+    words = (pad.reshape(-1, 16) << (2 * np.arange(16, dtype=np.uint32))
+             ).sum(axis=1, dtype=np.uint64).astype(np.uint32)
+    return words.reshape(-1, 8)
+
+
+def make_device_index(idx, device) -> DeviceIndex:
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return DeviceIndex(
+        joined=put(idx.joined),
+        joined_words=put(_pack_joined_words(idx.joined).astype(np.int64)),
+        run_starts=put(idx.run_joined_start.astype(np.int32)),
+        run_ends=put(np.append(idx.run_joined_start[1:],
+                               idx.n).astype(np.int32)))
+
+
+# ------------------------------------------------------------ device utils -
+
+def _nonzero_fixed(mask, size: int, fill: int):
+    """Indices of the first `size` True entries of a 1-D mask, ascending,
+    padded with `fill` — `jnp.nonzero(size=, fill_value=)` without a host
+    synchronisation (rank by cumsum, then scatter; ranks past `size` land
+    in a discarded overflow slot)."""
+    n = mask.shape[0]
+    rank = torch.cumsum(mask.to(torch.int32), 0) - 1
+    tgt = torch.where(mask & (rank < size), rank, size).to(torch.int64)
+    out = torch.full((size + 1,), fill, dtype=torch.int64,
+                     device=mask.device)
+    out.scatter_(0, tgt, torch.arange(n, dtype=torch.int64,
+                                      device=mask.device))
+    return out[:size]
+
+
+def _seg_max(data, ids, n: int):
+    """Per-segment max; empty segments hold INT32_MIN (as
+    jax.ops.segment_max leaves them)."""
+    out = torch.full((n,), INT32_MIN, dtype=data.dtype, device=data.device)
+    return out.scatter_reduce_(0, ids.to(torch.int64), data, "amax")
+
+
+def _seg_sum(data, ids, n: int):
+    out = torch.zeros(n, dtype=torch.int32, device=data.device)
+    return out.index_add_(0, ids.to(torch.int64), data.to(torch.int32))
+
+
+def _static_table(table: tuple, idx):
+    """Table lookup by a run of wheres over the table's change points
+    (values wrap to uint8, as the reference's uint8 table does)."""
+    out = torch.full(idx.shape, int(table[0]) & 255, dtype=torch.int32,
+                     device=idx.device)
+    for q in range(1, len(table)):
+        if table[q] != table[q - 1]:
+            out = torch.where(idx >= q, int(table[q]) & 255, out)
+    return out
+
+
+def _rolling_keys(codes4, n_pack: int, shift0: int, reverse: bool):
+    """Rolling 2-bit packed keys over [B, L] int64 code rows. Forward:
+    key[j] packs codes[j+shift0 .. j+shift0+n_pack). Reverse: key[j] packs
+    codes[j-shift0], codes[j-shift0-1], ... (reverse-complement windows
+    indexed by their last fw position)."""
+    B, L = codes4.shape
+    acc = torch.zeros((B, L), dtype=torch.int64, device=codes4.device)
+    m = shift0 + n_pack
+    if not reverse:
+        pad = torch.nn.functional.pad(codes4, (0, m))
+        for t in range(shift0, m):
+            acc = ((acc << 2) | pad[:, t : t + L]) & 0xFFFFFFFF
+    else:
+        pad = torch.nn.functional.pad(codes4, (m, 0))
+        for t in range(shift0, m):
+            acc = ((acc << 2) | pad[:, m - t : m - t + L]) & 0xFFFFFFFF
+    return acc
+
+
+def _const(vals, dev):
+    """A small int64 constant tensor on `dev`, copied from pinned memory
+    without blocking: a copy from pageable memory would wait for all the
+    work queued on the stream, serialising the batches in flight."""
+    t = torch.tensor(vals, dtype=torch.int64)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _wrap32(x):
+    """int64 holding a 32-bit pattern -> int32 with that bit pattern."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+# meta word 0 bit layout
+_LEN_BITS = 20
+_F_ACT_FW = 1 << 20
+_F_ACT_RC = 1 << 21
+_F_SEED_R0 = 1 << 22
+_F_EXACT_ONLY = 1 << 23   # report only perfect-score hits (seed_skip reads)
+
+
+# ------------------------------------------------------------ the pipeline -
+
+def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
+                   mmtab):
+    """One whole search batch on the device of its tensors (fast shape).
+
+    packed2: [2, B, L] uint8 — byte 255 = pad/N, else code<<6|min(qual,63);
+             slot 0 left-aligned, slot 1 right-aligned ([1, B, raw_len]
+             when cfg.raw_len)
+    meta:    [B, 5] int32 — [len|flag bits, minsc, seed interval, nrounds,
+             perfect score]
+    mmtab:   [64] int32 — unused by the fast shape (cfg.mmtab_t is static)
+
+    Returns out_pack int32: [5, C_max+128] when cfg.pack5, else [7, C_max]
+    (layouts as in the reference package's fused_pipeline).
+    """
+    B, L, E = cfg.B, cfg.L, cfg.E
+    dev = meta.device
+    i32 = torch.int32
+    n_text = didx.joined.shape[0]
+
+    def ar(n, dtype=i32):
+        return torch.arange(n, dtype=dtype, device=dev)
+
+    # ---- unpack the transfer-packed batch ----
+    m0 = meta[:, 0]
+    lens = m0 & ((1 << _LEN_BITS) - 1)
+    act_fw = (m0 & _F_ACT_FW) > 0
+    act_rc = (m0 & _F_ACT_RC) > 0
+    seed_r0_active = (m0 & _F_SEED_R0) > 0
+    ex_only = (m0 & _F_EXACT_ONLY) > 0
+    minsc = meta[:, 1]
+    interval = meta[:, 2].clamp_min(1)
+    nrounds = meta[:, 3].clamp_min(1)
+    perfect = meta[:, 4]
+
+    if cfg.raw_len:
+        enc = packed2[0].to(i32)                        # [B, raw_len]
+        la = torch.nn.functional.pad(enc, (0, L - cfg.raw_len), value=255)
+        ra = torch.nn.functional.pad(enc, (L - cfg.raw_len, 0), value=255)
+    else:
+        la, ra = packed2[0].to(i32), packed2[1].to(i32)
+    is_n = la == 255
+    fw_seqs = torch.where(is_n, 5, la >> 6)
+    qual6 = torch.where(is_n, 0, la & 63)
+    mm_fw = _static_table(cfg.mmtab_t, qual6)
+    ra_codes = torch.where(ra == 255, 5, ra >> 6)
+    la_codes = fw_seqs
+    comp_ra = torch.where(ra_codes <= 3, 3 - ra_codes, ra_codes)
+
+    # ---- per-read seed schedule (exact integer port of
+    # UnpairedAligner.seed_offsets; ref: bt2_search.cpp:3848-3870,
+    # aligner_seed.cpp:523-529); skipped when the schedule is static ----
+    S, Ls = cfg.S, cfg.seed_len
+    if cfg.sched is None:
+        s_i = ar(S)[None, :]
+        seed_start_l, seed_valid_l = [], []
+        for r in range(cfg.R):
+            ok = (interval > r) & (r < nrounds)
+            off = torch.div(interval * r, nrounds, rounding_mode="floor")
+            ok &= ~((off > 0) & (Ls + off > lens))
+            nseeds = torch.where(
+                ok, 1 + torch.where(
+                    lens - off > Ls,
+                    torch.div(lens - off - Ls, interval,
+                              rounding_mode="floor"), 0), 0)
+            seed_start_l.append(off[:, None] + s_i * interval[:, None])
+            seed_valid_l.append(s_i < nseeds[:, None])
+        seed_start = torch.stack(seed_start_l, dim=1)   # [B, R, S]
+        seed_valid = torch.stack(seed_valid_l, dim=1)
+
+    # the right-aligned layout makes reversal a flip:
+    # flip(ra)[j] = fw[len-1-j]
+    rc_seqs = torch.flip(comp_ra, dims=[1])
+    mm_ra = torch.where(ra == 255, 0, _static_table(cfg.mmtab_t, ra & 63))
+    mm_rc = torch.flip(mm_ra, dims=[1])
+    both = torch.cat([fw_seqs, rc_seqs])                # [2B, L] lane order
+    mm_both = torch.cat([mm_fw, mm_rc])
+
+    # ---- seed rounds through the k-mer table ----
+    round_active = seed_r0_active
+    seeds_failed_r0 = torch.zeros(B, dtype=torch.bool, device=dev)
+    n_seed_ct = torch.zeros((), dtype=i32, device=dev)
+    # a full-read exact copy is in EVERY seed's range, so clipping can hide
+    # one only when ALL of a strand's round-0 seed ranges clipped at E
+    read_clip = torch.zeros(B, dtype=torch.bool, device=dev)
+    reseed_max = torch.zeros((), dtype=i32, device=dev)
+
+    def _seed_lookup(qh, ql):
+        if cfg.kmer_mode == "cuckoo":
+            return kmod.cuckoo_lookup(dkm, qh, ql, cfg.tbits, cfg.salt)
+        return kmod.lookup_body(dkm, qh, ql, cfg.n_hi, cfg.bbits,
+                                cfg.kmer_steps)
+
+    n_hi, n_lo = cfg.n_hi, cfg.n_lo
+    codes4f = torch.where(la_codes <= 3, la_codes, 0).to(torch.int64)
+    khi_fw = _rolling_keys(codes4f, n_hi, 0, False)
+    klo_fw = (_rolling_keys(codes4f, n_lo, n_hi, False)
+              if n_lo else torch.zeros_like(khi_fw))
+    codes4r = torch.where(ra_codes <= 3, comp_ra, 0).to(torch.int64)
+    khi_rc = _rolling_keys(codes4r, n_hi, 0, True)
+    klo_rc = (_rolling_keys(codes4r, n_lo, n_hi, True)
+              if n_lo else torch.zeros_like(khi_rc))
+    # N-in-window flags, shared by both strands
+    ncum = torch.nn.functional.pad(torch.cumsum(is_n.to(i32), 1, dtype=i32),
+                                   (1, 0))                   # [B, L+1]
+    ncum = torch.cat([ncum, ncum[:, -1:].expand(B, Ls)], 1)  # edge pad
+    lanes_fw = ar(B)[:, None]
+
+    r_lane, r_depth, r_top, r_cnt = [], [], [], []
+    for r in range(cfg.R):
+        # round 0 also looks up seeds of exact-only (seed_skip) reads, which
+        # never count toward the reseeding stats below
+        lk_active = (round_active | (ex_only & (act_fw | act_rc))
+                     if r == 0 else round_active)
+        if cfg.sched is not None:
+            # batch-uniform schedule: static seed columns
+            offs = cfg.sched[r]
+            if not offs:
+                if r == 0:
+                    seeds_failed_r0 = seed_r0_active
+                round_active = torch.zeros(B, dtype=torch.bool, device=dev)
+                continue
+            S_r = len(offs)
+            len0 = cfg.static_len
+            oc = _const(offs, dev)
+            # rc window indexed by its last fw position o + Ls - 1; the ra
+            # column of fw position k is L - len + k
+            rcol = oc + (L - len0 + Ls - 1)
+            q_hi_f, q_lo_f = khi_fw[:, oc], klo_fw[:, oc]
+            q_hi_r, q_lo_r = khi_rc[:, rcol], klo_rc[:, rcol]
+            win_n = (ncum[:, oc + Ls] - ncum[:, oc]) > 0
+            d_fw = oc.to(i32)[None, :].expand(B, S_r)
+            d_rc = ((len0 - Ls) - oc).to(i32)[None, :].expand(B, S_r)
+            sv = lk_active[:, None].expand(B, S_r)
+            ok_f = sv & act_fw[:, None] & ~win_n
+            ok_r = sv & act_rc[:, None] & ~win_n
+        else:
+            S_r = S
+            sv = seed_valid[:, r, :] & lk_active[:, None]     # [B, S]
+            d_fw = seed_start[:, r, :]                        # [B, S]
+            d_rc = lens[:, None] - d_fw - Ls
+            dc = d_fw.clamp(0, L - 1).to(torch.int64)
+            q_hi_f = khi_fw.gather(1, dc)
+            q_lo_f = klo_fw.gather(1, dc)
+            # rc window indexed by its last fw position q = d_fw+Ls-1;
+            # ra column of fw position k is L - len + k
+            qcol = (L - lens[:, None] + d_fw + Ls - 1).clamp(
+                0, L - 1).to(torch.int64)
+            q_hi_r = khi_rc.gather(1, qcol)
+            q_lo_r = klo_rc.gather(1, qcol)
+            ecol = (d_fw + Ls).clamp(0, ncum.shape[1] - 1).to(torch.int64)
+            win_n = (ncum.gather(1, ecol) - ncum.gather(1, dc)) > 0
+            ok_f = sv & act_fw[:, None] & ~win_n & (d_fw >= 0)
+            ok_r = sv & act_rc[:, None] & ~win_n & (d_rc >= 0)
+        q_hi = torch.cat([q_hi_f, q_hi_r]).reshape(-1)
+        q_lo = torch.cat([q_lo_f, q_lo_r]).reshape(-1)
+        val_all = torch.cat([ok_f, ok_r]).reshape(-1)
+        dep_all = torch.cat([d_fw, d_rc]).reshape(-1)
+        lane_all = torch.cat([lanes_fw.expand(B, S_r),
+                              (lanes_fw + B).expand(B, S_r)]).reshape(-1)
+        Ntot = q_hi.shape[0]
+        if r == 0 or cfg.RS == 0 or cfg.RS >= Ntot:
+            start, cnt = _seed_lookup(q_hi, q_lo)
+            n_seed_ct = n_seed_ct + val_all.sum(dtype=i32)
+            cnt = torch.where(val_all, cnt, 0)
+            st_val = val_all
+        else:
+            # reseed rounds fire for few reads: compact the active lanes
+            # to cfg.RS rows before the table probes (overflow -> counter
+            # slot 8 -> host capacity escalation)
+            n_act = val_all.sum(dtype=i32)
+            reseed_max = torch.maximum(reseed_max, n_act)
+            sel_r = _nonzero_fixed(val_all, cfg.RS, Ntot)
+            ok_c = sel_r < Ntot
+            selc = sel_r.clamp(0, Ntot - 1)
+            start, cnt = _seed_lookup(q_hi[selc], q_lo[selc])
+            n_seed_ct = n_seed_ct + n_act
+            cnt = torch.where(ok_c, cnt, 0)
+            dep_all = dep_all[selc]
+            lane_all = lane_all[selc].clamp(0, 2 * B - 1)
+            st_val = ok_c
+        hit = st_val & (cnt > 0)
+        r_lane.append(lane_all)
+        r_depth.append(dep_all)
+        r_top.append(start)
+        r_cnt.append(cnt.clamp_max(E))
+
+        read_of = lane_all % B
+        if r == 0:
+            unclip2 = _seg_max((st_val & (cnt <= E)).to(i32), lane_all,
+                               2 * B) > 0
+            any2 = _seg_max(st_val.to(i32), lane_all, 2 * B) > 0
+            allclip2 = any2 & ~unclip2
+            read_clip = allclip2[:B] | allclip2[B:]
+        # reseeding stats never include exact-only lanes
+        st_ok = st_val & ~ex_only[read_of]
+        inst = _seg_sum(st_ok, read_of, B)
+        nonz = _seg_sum(hit & st_ok, read_of, B)
+        tot = _seg_sum(torch.where(st_ok, cnt, 0), read_of, B)
+        if r == 0:
+            seeds_failed_r0 = seed_r0_active & ((inst == 0) | (nonz == 0))
+        round_active = (round_active & (inst > 0) & (nonz > 0)
+                        & (tot >= cfg.boost_thresh * nonz))
+    cnt_fw = torch.zeros((), dtype=i32, device=dev)   # no branch stage
+    cnt_mr = cnt_fw
+
+    # ---- assemble ranges -> elements -> resolve (two-level compaction:
+    # hit ranges first, then their elements) ----
+    r_lane = torch.cat(r_lane).to(i32)
+    r_depth = torch.cat(r_depth).to(i32)
+    r_top = torch.cat(r_top).to(i32)
+    r_cnt = torch.cat(r_cnt).to(i32)
+    NR = r_lane.shape[0]
+    NH = cfg.NH
+    hitr = r_cnt > 0
+    n_hit = hitr.sum(dtype=i32)
+    hsel = _nonzero_fixed(hitr, NH, NR)
+    hidx = hsel.clamp(0, NR - 1)
+    h_lane, h_depth, h_top = r_lane[hidx], r_depth[hidx], r_top[hidx]
+    h_cnt = torch.where(hsel >= NR, 0, r_cnt[hidx] & 0xFFFF)
+
+    ev = (ar(E)[None, :] < h_cnt[:, None]).reshape(-1)
+    n_elts = ev.sum(dtype=i32)
+    sel = _nonzero_fixed(ev, cfg.C_pre, NH * E)
+    pad = sel >= NH * E
+    ridx = torch.div(sel, E, rounding_mode="floor").clamp(0, NH - 1)
+    lane = h_lane[ridx]
+    e_depth = h_depth[ridx]
+    row = h_top[ridx] + (sel % E).to(i32)
+    n_keys = dkm.pos.shape[0]
+    off = dkm.pos[row.clamp(0, n_keys - 1)].to(i32)
+    diag = off - e_depth
+    e_ok = ~pad & (diag > -L)
+
+    # ---- dedup on (lane, diag): one sort of the packed int64 key
+    # lane<<32 | (diag + 2^31), which orders like the 2-key sort ----
+    key_lane = torch.where(e_ok, lane, 1 << 30)
+    key = (key_lane.to(torch.int64) << 32) | (diag.to(torch.int64)
+                                              + (1 << 31))
+    key = torch.sort(key).values
+    s_lane = (key >> 32).to(i32)
+    s_diag = ((key & 0xFFFFFFFF) - (1 << 31)).to(i32)
+    prev_lane = torch.cat([torch.full((1,), -1, dtype=i32, device=dev),
+                           s_lane[:-1]])
+    prev_diag = torch.cat([torch.zeros(1, dtype=i32, device=dev),
+                           s_diag[:-1]])
+    uniq = (s_lane < (1 << 30)) & ((s_lane != prev_lane)
+                                   | (s_diag != prev_diag))
+    n_cand = uniq.sum(dtype=i32)
+    csel = _nonzero_fixed(uniq, cfg.C_max, cfg.C_pre)
+    cpad = csel >= cfg.C_pre
+    cselc = csel.clamp(0, cfg.C_pre - 1)
+    c_lane = torch.where(cpad, 0, s_lane[cselc])
+    c_diag = torch.where(cpad, 0, s_diag[cselc])
+    c_valid = ~cpad
+
+    # ---- banded DP over interior candidates ----
+    K = cfg.K
+    c_read = c_lane % B
+    c_fw = c_lane < B
+    c_rl = lens[c_read]
+    ws = c_diag - K // 2
+    n_runs = didx.run_starts.shape[0]
+    run_i = (torch.searchsorted(didx.run_starts, c_diag.clamp_min(0),
+                                right=True) - 1).clamp(0, n_runs - 1)
+    lo = didx.run_starts[run_i]
+    hi_run = didx.run_ends[run_i]
+    interior = c_valid & (ws >= lo) & (ws + c_rl + K <= hi_run)
+
+    Cx = cfg.C_max
+    W = L + K
+    # reference window: gather 128-base rows, then select the word offset
+    # inside the first row and the base offset inside the word
+    nw = W // 16 + 2
+    n_rows = didx.joined_words.shape[0]
+    nrow_g = -(-(nw + 7) // 8)
+    wsc = ws.clamp(0, max(n_text - 1, 1)).to(torch.int64)
+    r0 = wsc >> 7
+    woff = (wsc >> 4) & 7
+    sh = wsc & 15
+    rgat = didx.joined_words[(r0[:, None] + ar(nrow_g, torch.int64)[None, :]
+                              ).clamp(0, n_rows - 1)]      # [C, nrow_g, 8]
+    words = rgat.reshape(Cx, nrow_g * 8)
+    wwin = words.gather(1, woff[:, None] + ar(nw, torch.int64)[None, :])
+    unp = torch.stack([(wwin >> (2 * t)) & 3 for t in range(16)], dim=2)
+    unp = unp.reshape(Cx, nw * 16)
+    band = unp.gather(1, sh[:, None] + ar(W, torch.int64)[None, :]).to(i32)
+    lane_c = c_lane.clamp(0, 2 * B - 1)
+    rd_c = both[lane_c]                                  # [C, L]
+    mm_c = mm_both[lane_c]
+    lens_c = c_rl.clamp_min(1)
+
+    best, bi, bk = banded_dp(cfg.sw, K, rd_c.T.contiguous(),
+                             mm_c.T.contiguous(), lens_c.contiguous(),
+                             band.T.contiguous())
+    c_end = ws + bi + bk
+    c_score = torch.where(interior, best, NEG_INF)
+
+    # ---- center-diagonal ungapped stats: a winner is certified ungapped
+    # iff its DP end sits on the last read row, its start column is the
+    # candidate's own diagonal (band center K//2), and the pure diagonal
+    # reproduces the DP score ----
+    in_rl = ar(L)[None, :] < c_rl[:, None]
+    ref_d = band[:, K // 2 : K // 2 + L]
+    isn_c = rd_c > 3
+    mism = (rd_c != ref_d) & ~isn_c & in_rl
+    swc = cfg.sw
+    step_sc = torch.where(isn_c, -swc.npen,
+                          torch.where(mism, -mm_c, swc.ma))
+    usc = torch.where(in_rl, step_sc, 0).sum(1, dtype=i32)
+    nm_c = (mism | (isn_c & in_rl)).sum(1, dtype=i32)
+    ungapped_c = (bi == c_rl - 1) & (bk == K // 2) & (usc == best)
+    row6 = nm_c.clamp_max((1 << 16) - 1) | (ungapped_c.to(i32) << 16)
+
+    # ---- per-read selection (best + secbest-distinct-end) ----
+    sel_ok = interior & (c_score >= minsc[c_read])
+    # seed_skip (exact-only) reads keep hits the up-front stages would find
+    # without seeds: perfect matches and ungapped <=1-substitution hits
+    allow_up = torch.zeros_like(sel_ok)
+    if not cfg.no_exact_up:
+        allow_up |= c_score == perfect[c_read]
+    if not cfg.no_1mm_up:
+        allow_up |= ungapped_c & (nm_c == 1)
+    sel_ok &= ~ex_only[c_read] | allow_up
+    sc = torch.where(sel_ok, c_score, NEG_INF)
+    best_sc = _seg_max(sc, c_read, B)
+    is_bs = sel_ok & (c_score == best_sc[c_read])
+    ndiag = torch.where(is_bs, -c_diag, -(1 << 30))
+    best_nd = _seg_max(ndiag, c_read, B)
+    is_bd = is_bs & (-c_diag == best_nd[c_read])
+    fwi = torch.where(is_bd, c_fw.to(i32), -1)
+    best_fwi = _seg_max(fwi, c_read, B)
+    is_bf = is_bd & (c_fw.to(i32) == best_fwi[c_read])
+    best_ci = _seg_max(torch.where(is_bf, ar(Cx), -1), c_read,
+                       B).clamp_min(-1)
+
+    bcl = best_ci.clamp(0, Cx - 1)
+    best_end_r = c_end[bcl]
+    best_fw_r = c_fw[bcl]
+    sec_ok = sel_ok & ((c_end != best_end_r[c_read])
+                       | (c_fw != best_fw_r[c_read]))
+    sec_sc = _seg_max(torch.where(sec_ok, c_score, NEG_INF), c_read, B)
+    has_rect = _seg_max((c_valid & ~interior).to(i32), c_read,
+                        B).clamp_min(0)
+
+    # exact hits recovered from DP scores: a perfect-score candidate IS a
+    # full-read exact match; a clipped seed range may hide further exact
+    # copies -> conservative E+1 escape
+    is_perf = sel_ok & (c_score == perfect[c_read])
+    n_perf = _seg_sum(is_perf, c_read, B)
+    exact_mult = torch.where(read_clip & (best_sc == perfect), E + 1,
+                             n_perf)
+
+    # ---- pack outputs (single D2H array) ----
+    best_pack = (((best_ci + 1) << 2) | (has_rect.clamp_max(1) << 1)
+                 | seeds_failed_r0.to(i32))
+    counters = torch.stack([n_cand, n_elts, cnt_fw, cnt_mr, n_hit,
+                            n_seed_ct, interior.sum(dtype=i32),
+                            (interior & ungapped_c).sum(dtype=i32),
+                            reseed_max]).to(i32)
+    if cfg.pack5:
+        # r0: valid | interior<<1 | fw<<2 | read<<4 (18b) | nm<<22 (9b)
+        #     | ungapped<<31
+        # r2: score clamped +-30000, biased +32768 (16b) | (bi<<8|bk)<<16
+        # r3: best_pack : B;  r4: [sec16<<16 | mult16 : B | counters : 9]
+        Wp = Cx + 128
+        i64 = torch.int64
+        r0 = _wrap32(c_valid.to(i64) | (interior.to(i64) << 1)
+                     | (c_fw.to(i64) << 2) | (c_read.to(i64) << 4)
+                     | (nm_c.clamp_max(511).to(i64) << 22)
+                     | (ungapped_c.to(i64) << 31))
+        sc16 = c_score.clamp(-30000, 30000).to(i64) + 32768
+        bibk = (bi.clamp(0, 255).to(i64) << 8) | bk.clamp(0, 255).to(i64)
+        r2 = _wrap32(sc16 | (bibk << 16))
+        sec16 = sec_sc.clamp(-30000, 30000).to(i64) + 32768
+        secmult = _wrap32((sec16 << 16) | exact_mult.clamp_max(65535))
+        out = torch.zeros((5, Wp), dtype=i32, device=dev)
+        out[0, :Cx] = r0
+        out[1, :Cx] = c_diag
+        out[2, :Cx] = r2
+        out[3, :B] = best_pack
+        out[4, :B] = secmult
+        out[4, Wp - 9 :] = counters
+        return out
+    out = torch.zeros((7, Cx), dtype=i32, device=dev)
+    out[0] = ((c_read << 4) | (c_fw.to(i32) << 2) | (interior.to(i32) << 1)
+              | c_valid.to(i32))
+    out[1] = c_diag
+    out[2] = c_score
+    out[3] = (bi << 8) | bk.clamp(0, 255)
+    out[4, :B] = best_pack
+    out[4, B : 2 * B] = sec_sc.clamp_min(NEG_INF)
+    out[5, :B] = exact_mult
+    out[5, Cx - 9 :] = counters
+    out[6] = row6
+    return out
+
+
+# --------------------------------------------------------------- host side -
+
+def per_len(fn, lens):
+    """Vectorize a scalar function of read length over a batch (few unique
+    lengths per batch in practice)."""
+    uniq, inv = np.unique(lens, return_inverse=True)
+    vals = np.array([fn(int(l)) if l > 0 else fn(1) for l in uniq])
+    return vals[inv]
+
+
+class BatchResult:
+    """Decoded outputs of one fused_pipeline run (host numpy)."""
+    __slots__ = ("counters", "B0", "c_read", "c_fw", "c_diag", "c_score",
+                 "c_end", "c_nm", "c_ungapped",
+                 "c_bi", "c_bk", "c_interior", "c_ws", "best_ci", "best_sc",
+                 "sec_sc", "exact_mult", "seeds_failed_r0", "has_rect",
+                 "overflow")
+
+    def __init__(self, B0, out, cfg, K):
+        self.B0 = B0
+        Cl, Bl = cfg.C_max, cfg.B
+        if cfg.pack5:
+            W = Cl + 128
+            bp = out[3, :Bl][:B0]
+            secmult = out[4, :Bl][:B0]
+            ctr = out[4, W - 9 :][None, :]
+            r0 = out[0, :Cl].view(np.uint32)
+            valid = (r0 & 1) > 0
+            reads = ((r0 >> 4) & 0x3FFFF).astype(np.int32)
+            keep = valid & (reads < B0)
+            self.c_read = reads[keep]
+            self.c_fw = ((r0 >> 2) & 1).astype(bool)[keep]
+            self.c_interior = ((r0 >> 1) & 1).astype(bool)[keep]
+            self.c_nm = ((r0 >> 22) & 0x1FF).astype(np.int32)[keep]
+            self.c_ungapped = (r0 >> 31).astype(bool)[keep]
+            self.c_diag = out[1, :Cl][keep]
+            r2 = out[2, :Cl][keep]
+            sc = (r2 & 0xFFFF) - 32768
+            self.c_score = np.where(sc <= -30000, NEG_INF, sc)
+            self.c_bk = (r2 >> 16) & 0xFF
+            self.c_bi = (r2 >> 24) & 0xFF
+            sec_raw = ((secmult.view(np.uint32) >> 16)
+                       .astype(np.int64) - 32768)
+            sec = np.where(sec_raw <= -30000, NEG_INF, sec_raw)
+            mult = (secmult & 0xFFFF).astype(np.int64)
+        else:
+            row0 = out[0]
+            bp = out[4, :Bl][:B0]
+            sec = out[4, Bl : 2 * Bl][:B0]
+            mult = out[5, :Bl][:B0]
+            ctr = out[5, Cl - 9 :][None, :]
+            valid = (row0 & 1) > 0
+            reads = row0 >> 4
+            keep = valid & (reads < B0)
+            self.c_read = reads[keep]
+            self.c_fw = ((row0 >> 2) & 1).astype(bool)[keep]
+            self.c_interior = ((row0 >> 1) & 1).astype(bool)[keep]
+            self.c_diag = out[1][keep]
+            self.c_score = out[2][keep]
+            self.c_bi = (out[3] >> 8)[keep]
+            self.c_bk = (out[3] & 255)[keep]
+            self.c_nm = (out[6] & 0xFFFF)[keep]
+            self.c_ungapped = ((out[6] >> 16) & 1).astype(bool)[keep]
+        self.counters = ctr
+        self.overflow = bool((ctr[:, 0] > cfg.C_max).any()
+                             or (ctr[:, 1] > cfg.C_pre).any()
+                             or (ctr[:, 4] > cfg.NH).any()
+                             or (cfg.RS > 0
+                                 and (ctr[:, 8] > cfg.RS).any()))
+        self.c_ws = self.c_diag - K // 2
+        self.c_end = self.c_ws + self.c_bi + self.c_bk
+        # remap best_ci (packed-array index) to compacted space
+        remap = np.cumsum(keep) - 1
+        bc = (bp >> 2) - 1
+        self.best_ci = np.where(
+            bc >= 0, remap[np.clip(bc, 0, len(keep) - 1)], -1).astype(np.int32)
+        self.sec_sc = sec
+        self.exact_mult = mult
+        self.seeds_failed_r0 = (bp & 1).astype(bool)
+        self.has_rect = ((bp >> 1) & 1).astype(bool)
+        if len(self.c_read):
+            self.best_sc = np.where(
+                self.best_ci >= 0,
+                self.c_score[np.clip(self.best_ci, 0,
+                                     len(self.c_read) - 1)], NEG_INF)
+        else:
+            self.best_ci = np.full(B0, -1, np.int32)
+            self.best_sc = np.full(B0, NEG_INF, np.int64)
+
+
+class CandGen:
+    """Host side of the fused device pipeline: padding/bucketing, packed
+    transfers, dispatch (asynchronous on CUDA) and fetch."""
+
+    def __init__(self, idx, pol, sw_cfg, K: int, device, mesh=None):
+        self.device = torch.device(device)
+        self.big = idx.n + 1 >= BIG_THRESHOLD
+        self.mesh = mesh
+        self._sticky = 1   # sticky size_mult after an overflow escalation
+        self.didx = make_device_index(idx, self.device)
+        self._joined_host = idx.joined
+        self._cache_base = getattr(idx, "cache_base", None)
+        self.pol = pol
+        self.sw_cfg = sw_cfg
+        self.K = K
+        self._mmtab_dev = None
+        self._ktabs: dict[int, tuple] = {}
+
+    def _mmtab(self, mmtab):
+        if self._mmtab_dev is None:
+            self._mmtab_dev = torch.from_numpy(
+                np.ascontiguousarray(mmtab[:64], np.int32)).to(self.device)
+        return self._mmtab_dev
+
+    def _kmer(self, seed_len: int):
+        """(device table, host table) for this seed length, cached. The
+        cuckoo table is preferred; the sorted table is the fallback when
+        placement fails."""
+        hit = self._ktabs.get(seed_len)
+        if hit is None:
+            src = self._joined_host
+            cb = self._cache_base
+            tab = kmod.load_cuckoo_table(cb, seed_len, joined=src) \
+                if cb else None
+            if tab is None:
+                tab = kmod.build_cuckoo_table(src, seed_len)
+                if tab is not None and cb:
+                    kmod.save_cuckoo_table(tab, cb, joined=src)
+            if tab is not None:
+                hit = (kmod.cuckoo_to_device(tab, self.device), tab)
+            else:
+                stab = kmod.build_kmer_table(src, seed_len)
+                hit = (kmod.to_device(stab, self.device), stab)
+            self._ktabs[seed_len] = hit
+        return hit
+
+    def dispatch(self, seqs, quals, lens, act_fw, act_rc, minsc, mmtab,
+                 perfect=None, boost=None, seed_skip=None,
+                 size_mult: int = 1):
+        """seqs/quals: [B0, L0] uint8/int; lens [B0]. Returns an opaque
+        handle (device work and the result copy still in flight) for
+        fetch()."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "multi-device meshes are not ported yet (ROADMAP Queue A "
+                "item 13)")
+        if self.big:
+            raise NotImplementedError(
+                "big indexes are not ported yet (ROADMAP Queue A item 12)")
+        pol = self.pol
+        if pol.n_seed_mms > 0:
+            raise NotImplementedError(
+                "-N 1 needs the FM ops of the general shape, not ported yet "
+                "(ROADMAP Queue A item 10)")
+        B0, L0 = seqs.shape
+        Bl = _pow2(B0, lo=256)
+        Lp = _pow2(max(L0, 32), lo=32)
+
+        if boost is None:
+            boost = np.zeros(B0, bool)
+        if seed_skip is None:
+            seed_skip = np.zeros(B0, bool)
+
+        # per-read interval with exact host SimpleFunc semantics
+        # (ref: simple_func.h C-cast truncation)
+        lens_i = np.asarray(lens, np.int64)
+        interval = np.maximum(
+            1, per_len(pol.interval.f_int, lens)).astype(np.int64)
+        boost = np.asarray(boost, bool)
+        interval = np.where(
+            boost, np.maximum(1, (interval * 1.2 + 0.5).astype(np.int64)),
+            interval)
+        nrounds = np.where(boost, -(-pol.n_seed_rounds // 2),
+                           pol.n_seed_rounds)
+        nseeds_ub = 1 + np.maximum(0, lens_i - pol.seed_len) // interval
+        S = _pow2(int(nseeds_ub.max(initial=1)), lo=4)
+
+        # fast shape iff every active read keeps >=1 intact seed under any
+        # single-position substitution (see module doc)
+        active = np.asarray(act_fw, bool) | np.asarray(act_rc, bool)
+        cover = -(-pol.seed_len // interval)       # ceil(Ls / interval)
+        has_short = bool(np.any(active & ((lens_i < pol.seed_len)
+                                          | (nseeds_ub < cover + 1))))
+        if len(self._joined_host) < pol.seed_len:
+            has_short = True
+        if has_short:
+            raise NotImplementedError(
+                "reads too short for the fast shape need the general "
+                "short-read shape (FM ops), not ported yet (ROADMAP Queue A "
+                "item 10)")
+        dkm, ktab = self._kmer(pol.seed_len)
+
+        lens_u = np.unique(lens_i[:B0]) if B0 else lens_i[:0]
+        uniform_len = len(lens_u) == 1 and int(lens_u[0]) == L0
+        raw_len = 0
+        q6 = np.minimum(np.asarray(quals), 63).astype(np.uint8)
+        if uniform_len:
+            # single-plane encoded upload (1 B/base); right-align on device
+            raw_len = L0
+            packed = np.full((1, Bl, L0), 255, np.uint8)
+            s_a = np.asarray(seqs, np.uint8)
+            packed[0, :B0] = np.where(s_a > 3, np.uint8(255),
+                                      ((s_a & 3) << 6) | q6)
+        else:
+            packed = np.full((2, Bl, Lp), 255, np.uint8)
+            enc = ((np.asarray(seqs) & 3) << 6) | q6
+            enc = np.where(np.asarray(seqs) > 3, 255, enc).astype(np.uint8)
+            packed[0, :B0, :L0] = enc
+            j = np.arange(L0)
+            dest = (Lp - lens_i[:, None]) + j[None, :]
+            valid_e = j[None, :] < lens_i[:, None]
+            rows_e = np.broadcast_to(np.arange(B0)[:, None], (B0, L0))
+            packed[1, rows_e[valid_e], dest[valid_e]] = enc[valid_e]
+
+        meta = np.zeros((Bl, 5), np.int32)
+        m0 = lens_i.copy()
+        m0 |= np.where(np.asarray(act_fw, bool), _F_ACT_FW, 0)
+        m0 |= np.where(np.asarray(act_rc, bool), _F_ACT_RC, 0)
+        ss = np.asarray(seed_skip, bool)
+        r0 = active & ~ss
+        m0 |= np.where(r0, _F_SEED_R0, 0)
+        m0 |= np.where(active & ss, _F_EXACT_ONLY, 0)
+        meta[:B0, 0] = m0.astype(np.int32)
+        meta[:B0, 1] = np.asarray(minsc, np.int32)
+        meta[:B0, 2] = interval.astype(np.int32)
+        meta[:B0, 3] = nrounds.astype(np.int32)
+        if perfect is not None:
+            meta[:B0, 4] = np.asarray(perfect, np.int32)
+
+        # batch-uniform seed schedule -> static seed columns
+        sched = None
+        static_len = 0
+        if B0 > 0:
+            u_l = np.unique(lens_i[:B0])
+            u_iv = np.unique(interval[:B0])
+            u_nr = np.unique(nrounds[:B0])
+            if len(u_l) == 1 and len(u_iv) == 1 and len(u_nr) == 1:
+                l0, iv, nr = int(u_l[0]), int(u_iv[0]), int(u_nr[0])
+                Lsd = pol.seed_len
+                rounds = []
+                for r in range(pol.n_seed_rounds):
+                    ok = (iv > r) and (r < nr)
+                    off = (iv * r) // nr
+                    if ok and off > 0 and Lsd + off > l0:
+                        ok = False
+                    if not ok:
+                        rounds.append(())
+                        continue
+                    nseeds = 1 + ((l0 - off - Lsd) // iv
+                                  if l0 - off > Lsd else 0)
+                    rounds.append(tuple(off + i * iv for i in range(nseeds)))
+                sched = tuple(rounds)
+                static_len = l0
+
+        # sticky capacity escalation: a workload that overflowed once keeps
+        # the larger sets
+        size_mult = max(size_mult, self._sticky)
+        pack5 = (Lp <= 256 and self.K <= 256 and Bl <= (1 << 18))
+        # E scales with -k so the fused shape resolves enough elements per
+        # range to honor khits (ref: aln_sink.h:264-283)
+        E_eff = _pow2(max(pol.max_sa_elts, min(pol.khits, 1024)))
+        cfg = CandGenCfg(
+            B=Bl, L=Lp, S=S, R=pol.n_seed_rounds, E=E_eff,
+            seed_len=pol.seed_len, K=self.K,
+            NH=max(6 * Bl * size_mult, 8192),
+            C_pre=max(6 * Bl * size_mult, 8192),
+            C_max=(_pow2(Bl * size_mult, lo=4096) + 1024 if pack5
+                   else _pow2(2 * Bl * size_mult, lo=4096)),
+            sw=self.sw_cfg, pack5=pack5,
+            kmer_mode=("cuckoo" if isinstance(ktab, kmod.CuckooTable)
+                       else "sorted"),
+            kmer_steps=getattr(ktab, "search_steps", 1),
+            n_hi=ktab.n_hi, n_lo=ktab.n_lo,
+            bbits=getattr(ktab, "bbits", 10),
+            tbits=getattr(ktab, "tbits", 0),
+            salt=getattr(ktab, "salt", 0),
+            RS=_pow2(max(Bl // 4, 2048) * size_mult),
+            mmtab_t=tuple(int(x) for x in np.asarray(mmtab[:64])),
+            sched=sched, static_len=static_len, raw_len=raw_len,
+            boost_thresh=getattr(pol, "boost_thresh", 300),
+            no_exact_up=getattr(pol, "no_exact_upfront", False),
+            no_1mm_up=getattr(pol, "no_1mm_upfront", False))
+        return self._launch(B0, cfg, dkm, packed, meta, mmtab)
+
+    def _launch(self, B0, cfg, dkm, packed, meta, mmtab):
+        dev = self.device
+        if dev.type == "cuda":
+            # pinned staging + asynchronous copies: the host returns while
+            # the device works; fetch() waits on the event recorded after
+            # the result copy
+            up = lambda a: torch.from_numpy(a).pin_memory().to(
+                dev, non_blocking=True)
+            out = fused_pipeline(self.didx, dkm, cfg, up(packed), up(meta),
+                                 self._mmtab(mmtab))
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return (B0, cfg, host, done)
+        out = fused_pipeline(self.didx, dkm, cfg,
+                             torch.from_numpy(packed).to(dev),
+                             torch.from_numpy(meta).to(dev),
+                             self._mmtab(mmtab))
+        return (B0, cfg, out.cpu(), None)
+
+    def fetch(self, handle) -> BatchResult:
+        B0, cfg, host, done = handle
+        if done is not None:
+            done.synchronize()
+        return BatchResult(B0, host.numpy(), cfg, self.K)

@@ -1,0 +1,1053 @@
+"""The staged alignment pipeline (ref: bt2_search.cpp:3050
+multiseedSearchWorker, aligner_sw_driver.cpp:756 SwDriver::extendSeeds).
+Port of bowtie2_server_tpu/align/pipeline.py: the UnpairedAligner fast
+path, which runs the fused device pipeline of align/candgen.py on the
+device given at construction. The reference package's host path
+(`_collect_host`: -a, -k above 1024, overflow after capacity escalation)
+is not ported yet and raises NotImplementedError (ROADMAP Queue A item 11).
+
+Where the reference advances one read at a time through
+filters -> exact sweep -> 1mm -> seed rounds -> extend, this pipeline
+advances a whole batch through fixed-shape stages:
+
+  1. encode + filters                               (host, vectorized)
+  2. seed rounds: seeds at the reference's offsets
+     (ref: aligner_seed.cpp:498 instantiateSeeds; offset schedule
+     bt2_search.cpp:3853) looked up in the k-mer table (device)
+  3. position resolution, candidate dedup per (read, strand, diagonal),
+     banded DP of every candidate, per-read selection
+                                (device, align/candgen.py, ops/sw_banded.py)
+  4. rectangle DP of run-boundary candidates        (host numpy, or the
+                                                     device above 128 jobs)
+  5. edits (ungapped fast path or host traceback), MAPQ v2, SAM fields
+                                                    (host)
+
+Differences from the reference flagged for later parity work: no streak
+early-stopping (we always search every stage — more sensitive, not less),
+and no within-seed mismatches (-N 0 only, the default). Equal-score ties
+break via the per-read generator (utils/rng.py): same seed derivation and
+LCG as the reference, fresh stream at selection time (the reference's
+stream position at selection depends on its sequential search history).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..index.fm import FmIndex
+from ..io.fastq import ReadBatch
+from ..ops.sw import NEG_INF, SwConfig, sw_align_batch
+from ..ops.sw_banded import banded_traceback
+from ..utils import dna
+from ..utils.scoring import Scoring
+from ..utils.simple_func import SimpleFunc, SQRT
+from .candgen import CandGen, per_len
+from .edits import (cigar_md_stats, edits_from_ungapped, ungapped_score,
+                    traceback as rect_traceback)
+from .mapq import mapq_batch, mapq_fn
+from ..utils.rng import RandomSource, gen_rand_seed, select_by_score_order
+
+# Band width: the reference's seed-extension rectangle spans +-2*maxgap
+# (maxgap <= maxhalf, default 15 = --dpad) around the anchor diagonal
+# (ref: dp_framer.cpp:95-100 frameSeedExtensionRect), so +-32 covers its
+# full reach at the default. Larger --dpad widens the band per policy
+# (band_for), the long-read/sensitivity knob: memory stays O(L*K).
+BAND = 64
+
+
+def band_for(maxhalf: int) -> int:
+    """Band width covering +-2*maxhalf diagonal excursion, pow2-bucketed
+    (one compiled kernel shape per width)."""
+    k = 64
+    while k < 4 * maxhalf + 4:
+        k *= 2
+    return k
+
+# -a sentinel: "report all" (ref: ReportingParams::allHits, aln_sink.h:288
+# khits == max int). -a routes to the host path, which enumerates ranges
+# UNBOUNDED in chunks of _RESOLVE_CHUNK (the reference's -a is unbounded,
+# aln_sink.h:288); -k up to _FUSED_KMAX runs fused with the per-range
+# element capacity E scaled to k.
+ALL_HITS = 1 << 30
+_RESOLVE_CHUNK = 65536      # per-device-call enumeration chunk
+_FUSED_KMAX = 1024          # largest -k served by the fused device path
+MAPQ_V = 2                  # MAPQ model (ref: bt2_search.cpp:513 mapqv=2)
+
+
+@dataclass(frozen=True)
+class SearchPolicy:
+    """Multiseed parameters (ref: presets.cpp --sensitive defaults)."""
+    seed_len: int = 22
+    interval: SimpleFunc = field(
+        default_factory=lambda: SimpleFunc(type=SQRT, C=1.0, L=1.15))
+    n_seed_rounds: int = 2
+    max_sa_elts: int = 16   # per-seed-range resolution cap (ref: RowSampler role)
+    maxhalf: int = 15       # DP window half-width (ref: --dpad default)
+    khits: int = 1
+    mhits: int = 50         # -M: sample 1 of the best when > mhits distinct
+    msample: bool = True    # alignments exist (ref: bt2_search.cpp:369-370)
+    seed: int = 0           # --seed: global RNG seed (ref: Read::seed mix)
+    n_seed_mms: int = 0     # -N: substitutions allowed inside a seed
+                            # (ref: aligner_seed.cpp:668 searchSeedBi)
+    non_deterministic: bool = False  # --non-deterministic: per-read seeds
+                            # drawn from a time-seeded stream instead of
+                            # read content (ref: bt2_search.cpp:3215-3218)
+    boost_thresh: int = 300  # --seed-boost: reseed when avg hits per
+                            # nonzero seed >= this (ref: seedBoostThresh,
+                            # bt2_search.cpp:4086)
+    no_exact_upfront: bool = False  # --no-exact-upfront (ref: doExactUpFront)
+    no_1mm_upfront: bool = False    # --no-1mm-upfront (ref: do1mmUpFront)
+    dp_streak: int = 15     # preset DPS (ref: presets.cpp:26 DPS=, the
+                            # maxDpStreak policy): caps consecutive failed
+                            # extend->commit attempts per read. Our DP is
+                            # batched (no per-extend cost to save), so this
+                            # bounds the sequential retry loop of the
+                            # selection stage — the same worst-case-latency
+                            # role it plays in SwDriver::extendSeeds.
+
+
+@dataclass
+class AlnRec:
+    """One read's alignment outcome — the SAM-record precursor
+    (ref: aligner_result.h:792 AlnRes)."""
+    name: str
+    aligned: bool
+    filtered: bool = False
+    fw: bool = True
+    ref_id: int = -1
+    pos: int = -1           # 0-based leftmost ref position
+    score: int = NEG_INF
+    secbest: int | None = None
+    mapq: int = 0
+    cigar: str = "*"
+    md: str = ""
+    nm: int = 0
+    xm: int = 0
+    xo: int = 0
+    xg: int = 0
+    xn: int = 0
+    yt: str = "UU"
+    secondary: bool = False  # SAM 0x100 (for -k/-a extra records)
+    seq: bytes = b""        # aligned-strand sequence (SAM SEQ)
+    qual: bytes = b""
+    # original-orientation read, the source of truth for SEQ/QUAL: _finish
+    # may run more than once on a record (paired combo retries), so it must
+    # always re-derive rather than mutate seq/qual in place
+    orig_seq: bytes = b""
+    orig_qual: bytes = b""
+    # paired-end fields (ref: aln_sink SAM flag/TLEN assembly)
+    paired: bool = False
+    mate1: bool = True
+    proper: bool = False
+    mate_aligned: bool = False
+    mate_fw: bool = True
+    mate_ref_id: int = -1
+    mate_pos: int = -1
+    tlen: int = 0
+    ys: int | None = None
+    pair_multi: bool = False  # pair had >1 concordant combo (summary stat)
+    comment: bytes | None = None   # FASTQ header comment (--sam-append-comment)
+    orig_rec: bytes | None = None  # original record text (--passthrough)
+    preserved: str | None = None   # BAM input tags (--preserve-tags)
+    yf: str = "NS"                 # filter reason when filtered (YF:Z:)
+    ym: bool = False               # repetitive under -M (YM:i, maxed flag)
+
+
+class ArrayCands:
+    """(read, fw, diag) candidate list backed by flat arrays (from the fused
+    device pipeline)."""
+
+    __slots__ = ("_r", "_f", "_d")
+
+    def __init__(self, read, fw, diag):
+        self._r, self._f, self._d = read, fw, diag
+
+    def __len__(self):
+        return len(self._r)
+
+    def __getitem__(self, ci):
+        return (int(self._r[ci]), bool(self._f[ci]), int(self._d[ci]))
+
+
+class LazyByRead(dict):
+    """read -> [candidate indices] map materialized on first access
+    (vectorized argsort grouping instead of a per-candidate Python loop)."""
+
+    def __init__(self, c_read):
+        super().__init__()
+        self._c_read = c_read
+        self._built = c_read is None or len(c_read) == 0
+
+    def _build(self, k=None):
+        """Materialize one key's candidate list (per-key, via a sorted
+        index) — a full build costs ~100 ms at 64k candidates while the
+        slow path typically touches a handful of reads per batch."""
+        if self._built:
+            return
+        if k is None:     # full materialization (iteration fallback)
+            self._built = True
+            order = self._order()
+            sr = self._c_read[order]
+            cut = np.nonzero(np.diff(sr))[0] + 1
+            for grp in np.split(order, cut):
+                ki = int(self._c_read[grp[0]])
+                if not dict.__contains__(self, ki):
+                    super().setdefault(ki, []).extend(grp.tolist())
+            return
+        k = int(k)
+        if dict.__contains__(self, k):
+            return
+        order = self._order()
+        lo = np.searchsorted(self._sorted, k, "left")
+        hi = np.searchsorted(self._sorted, k, "right")
+        if hi > lo:
+            super().setdefault(k, []).extend(order[lo:hi].tolist())
+
+    def _order(self):
+        o = getattr(self, "_ord", None)
+        if o is None:
+            o = np.argsort(self._c_read, kind="stable")
+            self._ord = o
+            self._sorted = self._c_read[o]
+        return o
+
+    def get(self, k, default=None):
+        self._build(k)
+        return super().get(k, default)
+
+    def setdefault(self, k, default=None):
+        self._build(k)
+        return super().setdefault(k, default)
+
+    def __getitem__(self, k):
+        self._build(k)
+        return super().__getitem__(k)
+
+    def __contains__(self, k):
+        self._build(k)
+        return super().__contains__(k)
+
+    def keys(self):
+        self._build()
+        return super().keys()
+
+    def items(self):
+        self._build()
+        return super().items()
+
+    def __iter__(self):
+        self._build()
+        return super().__iter__()
+
+    def values(self):
+        self._build()
+        return super().values()
+
+    def __len__(self):
+        self._build()
+        return super().__len__()
+
+    def pop(self, k, *default):
+        self._build(k)
+        return super().pop(k, *default)
+
+    # NOTE: only the overridden methods above are part of the supported
+    # API; truthiness (`if by_read:`) reflects only what has materialized
+    # so far — use len() or an explicit key probe instead.
+
+
+class LazyFin:
+    """fin_info list materializing band windows on demand (a slice of the
+    joined text) instead of copying one window per candidate up front."""
+
+    __slots__ = ("_res", "_lens", "_joined", "_K", "_over", "_n")
+
+    def __init__(self, res, lens, joined, K):
+        self._res, self._lens, self._joined, self._K = res, lens, joined, K
+        self._over: dict[int, tuple | None] = {}
+        self._n = len(res.c_read)
+
+    def __len__(self):
+        return self._n
+
+    def __getitem__(self, ci):
+        if ci in self._over:
+            return self._over[ci]
+        res = self._res
+        if ci >= len(res.c_read) or not res.c_interior[ci]:
+            return None
+        rl = int(self._lens[res.c_read[ci]])
+        ws = int(res.c_ws[ci])
+        return ("band", int(res.c_bi[ci]), int(res.c_bk[ci]),
+                self._joined[ws : ws + rl + self._K], ws)
+
+    def set(self, ci, v):
+        self._over[ci] = v
+
+
+class FastSoA:
+    """Vectorized results of the ungapped fast-commit path (_finish_fast):
+    everything needed to materialize an AlnRec — or emit a SAM line — with
+    no per-read Python work at commit time (ref: the role of AlnRes +
+    staged SAM flush, aligner_result.h:792, but array-of-columns instead
+    of object-per-read)."""
+
+    __slots__ = ("filled", "tidx", "fw", "ref_id", "pos", "score",
+                 "sec_has", "sec", "mapq", "nm", "rl",
+                 "mm_split", "mm_cols", "mm_ref", "_mm_builder")
+
+    _BASES = "ACGTN"
+
+    def __init__(self):
+        self._mm_builder = None
+        self.mm_split = None
+
+    def _ensure_mm(self):
+        """Mismatch detail is derived lazily (one vectorized pass) the
+        first time an MD string is requested — count-only consumers
+        (bench, summaries) never pay for it."""
+        if self.mm_split is None:
+            self.mm_split, self.mm_cols, self.mm_ref = self._mm_builder()
+
+    def md(self, t: int) -> str:
+        """MD:Z string of compact row t."""
+        self._ensure_mm()
+        rl = int(self.rl[t])
+        lo, hi = int(self.mm_split[t]), int(self.mm_split[t + 1])
+        if lo == hi:
+            return str(rl)
+        parts = []
+        last = 0
+        for k in range(lo, hi):
+            p = int(self.mm_cols[k])
+            parts.append(str(p - last))
+            parts.append(self._BASES[min(int(self.mm_ref[k]), 4)])
+            last = p + 1
+        parts.append(str(rl - last))
+        return "".join(parts)
+
+    def fill(self, rec: "AlnRec", i: int):
+        t = int(self.tidx[i])
+        rl = int(self.rl[t])
+        rec.aligned = True
+        rec.fw = bool(self.fw[t])
+        rec.ref_id = int(self.ref_id[t])
+        rec.pos = int(self.pos[t])
+        rec.score = int(self.score[t])
+        rec.secbest = int(self.sec[t]) if self.sec_has[t] else None
+        rec.mapq = int(self.mapq[t])
+        rec.cigar = f"{rl}M"
+        rec.nm = rec.xm = int(self.nm[t])
+        rec.xo = rec.xg = rec.xn = 0
+        rec.md = self.md(t)
+        if rec.fw:
+            rec.seq, rec.qual = rec.orig_seq, rec.orig_qual
+        else:
+            rec.seq = dna.revcomp_ascii(rec.orig_seq)
+            rec.qual = rec.orig_qual[::-1]
+
+
+class LazyRecs:
+    """Per-read AlnRec sequence materialized on first access. The fused
+    fast path keeps its results as arrays (FastSoA); an AlnRec object is
+    built only for reads something actually touches (slow paths, the
+    paired aligner, record-by-record SAM emission)."""
+
+    __slots__ = ("batch", "filtered", "qc", "_cache", "soa", "B", "ym_mask",
+                 "yf_codes")
+
+    def __init__(self, batch, filtered, qc_fail, yf_codes=None):
+        self.B = len(batch.names)
+        self.batch = batch
+        self.filtered = filtered
+        self.qc = qc_fail
+        # per-read filter-reason code 0..3 = LN/NS/SC/QC (ref: AlnFlags::
+        # printYF priority, aligner_result.cpp:1095-1100)
+        self.yf_codes = yf_codes
+        self._cache: dict[int, AlnRec] = {}
+        self.soa: FastSoA | None = None
+        self.ym_mask = None   # per-read repetitive flag under -M (YM:i)
+
+    def cache_items(self):
+        """(i, rec) pairs materialized so far (slow-path records)."""
+        return self._cache.items()
+
+    def __len__(self):
+        return self.B
+
+    def __getitem__(self, i):
+        if not 0 <= i < self.B:
+            raise IndexError(i)
+        rec = self._cache.get(i)
+        if rec is None:
+            b = self.batch
+            rec = AlnRec(name=b.names[i], aligned=False)
+            rec.seq = rec.orig_seq = b.raw_seq[i]
+            rec.qual = rec.orig_qual = b.raw_qual[i]
+            if b.comments is not None:
+                rec.comment = b.comments[i]
+            if b.origs is not None:
+                rec.orig_rec = b.origs[i]
+            if getattr(b, "bam_tags", None):
+                rec.preserved = b.bam_tags[i]
+            if self.filtered[i]:
+                rec.filtered = True
+                if self.yf_codes is not None:
+                    rec.yf = ("LN", "NS", "SC", "QC")[int(self.yf_codes[i])]
+                elif self.qc is not None and self.qc[i]:
+                    rec.yf = "QC"
+            if self.soa is not None and self.soa.filled[i]:
+                self.soa.fill(rec, i)
+            if self.ym_mask is not None and self.ym_mask[i]:
+                rec.ym = True
+            self._cache[i] = rec
+        return rec
+
+    def n_aligned(self) -> int:
+        n = 0
+        if self.soa is not None:
+            n += int(self.soa.filled.sum())
+        for i, r in self._cache.items():
+            in_soa = self.soa is not None and self.soa.filled[i]
+            if r.aligned and not in_soa:
+                n += 1
+        return n
+
+
+class UnpairedAligner:
+    def __init__(self, index: FmIndex, scoring: Scoring | None = None,
+                 policy: SearchPolicy | None = None, *, device,
+                 nofw: bool = False, norc: bool = False, mesh=None):
+        """device: where the fused pipeline runs ('cpu' runs the plain
+        torch versions of the kernels, 'cuda' the CUDA kernels). Big
+        indexes and meshes are not ported yet: CandGen.dispatch raises
+        NotImplementedError."""
+        self.nofw = nofw
+        self.norc = norc
+        self.idx = index
+        self.device = torch.device(device)
+        self.sc = scoring or Scoring.default_e2e()
+        self.pol = policy or SearchPolicy()
+        self.band = band_for(self.pol.maxhalf)
+        # run boundaries in joined space for window clipping
+        self._run_starts = index.run_joined_start
+        self._run_ends = np.append(index.run_joined_start[1:], index.n)
+        self.sw_cfg = SwConfig(
+            ma=self.sc.match_bonus, npen=self.sc.np_pen,
+            rdg_open=self.sc.read_gap_open, rdg_ext=self.sc.read_gap_extend,
+            rfg_open=self.sc.ref_gap_open, rfg_ext=self.sc.ref_gap_extend,
+            gapbar=self.sc.gapbar, local=self.sc.local)
+        # fused device pipeline (align/candgen.py) — the fast path. The
+        # reference package takes its host path when the index has no
+        # mirror direction; that path is not ported.
+        if index.mirror is None:
+            raise NotImplementedError(
+                "an index without its mirror direction takes the host path, "
+                "not ported yet (ROADMAP Queue A item 11)")
+        self.candgen = CandGen(index, self.pol, self.sw_cfg, self.band,
+                               self.device, mesh=mesh)
+        self._rect_stream = None   # CUDA stream of the rect DP (_rect_dp)
+
+    # ---- the batch pipeline ----
+
+    def align_batch(self, batch: ReadBatch) -> list[AlnRec]:
+        return self.align_wait(self.align_async(batch))
+
+    # -- async two-phase API: dispatch device work for batch i+1 while the
+    # host finishes batch i (double-buffering; ref: the reference's
+    # readahead/worker overlap, pat.h:1558) --
+
+    def align_async(self, batch: ReadBatch):
+        return (batch, self.collect_async(batch))
+
+    def align_wait(self, handle):
+        batch, chandle = handle
+        st = self.collect_wait(chandle)
+        B = st.B
+        if self.pol.khits == 1:
+            # khits == 1 never yields extra records: run the general path
+            # only for unhandled reads and return the lazy view — readers
+            # that only need counts/arrays never build AlnRec objects
+            if getattr(st, "sel", None) is not None:
+                handled = self._finish_fast(st)
+                todo = np.nonzero(~handled)[0]
+            else:
+                todo = range(B)
+            for i in todo:
+                self._select_unpaired(st, i)
+            return st.recs
+        out = []
+        for i in range(B):
+            extras = self._select_unpaired(st, i)
+            out.append(st.recs[i])
+            out.extend(extras)
+        return out
+
+    # ---- collect: the fused device path ----
+
+    def collect(self, batch: ReadBatch, boost=None, seed_skip=None):
+        return self.collect_wait(self.collect_async(batch, boost, seed_skip))
+
+    def collect_async(self, batch: ReadBatch, boost=None, seed_skip=None):
+        """Dispatch the device-side search for a batch (non-blocking)."""
+        if self.pol.khits > _FUSED_KMAX:
+            # -a (and -k beyond _FUSED_KMAX) needs unbounded per-range
+            # enumeration on the host path; -k up to _FUSED_KMAX runs
+            # fused with E scaled to k (CandGen.dispatch)
+            raise NotImplementedError(
+                "-a and -k above 1024 take the host path, not ported yet "
+                "(ROADMAP Queue A item 11)")
+        lens = batch.lens
+        B, L = batch.seqs.shape
+        n_counts = ((batch.seqs > 3)
+                    & (np.arange(L)[None, :] < lens[:, None])).sum(1)
+        nceil = per_len(self.sc.n_ceil_for, lens)
+        minsc = per_len(self.sc.score_min_for, lens)
+        perfect = per_len(self.sc.perfect_score, lens)
+        len_bad = lens == 0
+        n_bad = n_counts > nceil
+        sc_bad = perfect < minsc
+        filtered = len_bad | n_bad | sc_bad
+        yf_codes = np.where(len_bad, 0,
+                            np.where(n_bad, 1, np.where(sc_bad, 2, 3)))
+        active = ~filtered
+        h = self.candgen.dispatch(
+            batch.seqs, batch.quals, lens,
+            active & (not self.nofw), active & (not self.norc),
+            minsc, self.sc.mm_penalties(), perfect=perfect,
+            boost=boost, seed_skip=seed_skip)
+        meta = dict(lens=lens, filtered=filtered, minsc=minsc,
+                    perfect=perfect, nceil=nceil, seed_skip=seed_skip,
+                    yf_codes=yf_codes)
+        return (batch, boost, seed_skip, h, meta)
+
+    def collect_wait(self, handle):
+        batch, boost, seed_skip, h, meta = handle
+        res = self.candgen.fetch(h)
+        if res.overflow:
+            # capacity escalation: re-run the same batch with 2x, then
+            # 4x set sizes before giving up to the (much slower) host
+            # path (ref: the reference's graceful huge-range handling via
+            # RowSampler, aligner_sw_driver.h:179). Successful escalations
+            # become STICKY so a repetitive workload sizes itself once and
+            # stays there instead of re-running every batch.
+            filtered = meta["filtered"]
+            active = ~filtered
+
+            def redispatch(mult):
+                h2 = self.candgen.dispatch(
+                    batch.seqs, batch.quals, meta["lens"],
+                    active & (not self.nofw), active & (not self.norc),
+                    meta["minsc"], self.sc.mm_penalties(),
+                    perfect=meta["perfect"], boost=boost,
+                    seed_skip=seed_skip, size_mult=mult)
+                r = self.candgen.fetch(h2)
+                if not r.overflow:
+                    self.candgen._sticky = max(self.candgen._sticky, mult)
+                return r
+
+            for mult in (2, 4):
+                res = redispatch(mult)
+                if not res.overflow:
+                    break
+            if res.overflow:
+                raise NotImplementedError(
+                    "candidate capacity still exceeded at 4x: the host "
+                    "path that takes over is not ported yet (ROADMAP "
+                    "Queue A item 11)")
+        return self._build_state(batch, res, meta)
+
+    def _build_state(self, batch: ReadBatch, res, meta):
+        """Package fused-pipeline outputs as the per-batch state consumed by
+        selection/finish and the paired aligner (array-backed, lazy)."""
+        from types import SimpleNamespace
+        B, L = batch.seqs.shape
+        lens = meta["lens"]
+        filtered = meta["filtered"]
+        recs = LazyRecs(batch, filtered, None, meta.get("yf_codes"))
+
+        fw_seqs, fw_quals = batch.seqs, batch.quals
+        # rc/penalty rows are slow-path-only and PER-READ lazy: the whole-
+        # batch [B, L] revcomp + penalty matrices cost ~200 ms at B=32k
+        # while the slow path touches a handful of reads per batch
+        mmtab_h = self.sc.mm_penalties()
+        row_cache: dict = {}
+
+        def _read_row(i, is_fw):
+            key = (int(i), bool(is_fw))
+            hit = row_cache.get(key)
+            if hit is None:
+                rl = int(lens[i])
+                if is_fw:
+                    s = fw_seqs[i, :rl]
+                    q = fw_quals[i, :rl]
+                else:
+                    s = dna.COMP[fw_seqs[i, :rl]][::-1]
+                    q = fw_quals[i, :rl][::-1]
+                hit = (np.ascontiguousarray(s),
+                       mmtab_h[np.clip(q, 0, 255)].astype(np.int32))
+                row_cache[key] = hit
+            return hit
+
+        # -M repetitive flag (ref: ReportingState::areDone counting all
+        # valid alignments, aln_sink.cpp:322-328). Candidate granularity is
+        # (lane, diag) pre-(strand,end) suppression — a slight overcount in
+        # rare multi-diagonal-same-end cases; the reference's own count is
+        # discovery-order-truncated, so exact parity of the flag is
+        # undefined anyway. Not printed in default SAM (print_ym is never
+        # enabled by the reference CLI either, bt2_search.cpp:418).
+        if self.pol.msample and self.pol.mhits > 0 and len(res.c_read):
+            okc = res.c_interior & (
+                res.c_score >= meta["minsc"][res.c_read])
+            cnts = np.bincount(res.c_read[okc], minlength=B)
+            recs.ym_mask = ((cnts > self.pol.mhits)
+                            | (res.exact_mult > self.pol.mhits))
+
+        cands = ArrayCands(res.c_read, res.c_fw, res.c_diag)
+        best = np.where(res.c_interior, res.c_score, NEG_INF).astype(np.int64)
+        end_joined = np.where(res.c_interior, res.c_end, -1).astype(np.int64)
+        # by_read is only consulted on the slow path (khits>1, rect/gapped
+        # fallbacks, paired aligner) — build it lazily to keep the common
+        # khits==1 path free of the O(C) Python loop
+        by_read = LazyByRead(res.c_read)
+
+        def read_arrays(ci):
+            i, is_fw, _ = cands[ci]
+            s, mm = _read_row(i, is_fw)
+            return s, mm, int(lens[i])
+
+        fin_info = LazyFin(res, lens, self.idx.joined, self.band)
+        st = SimpleNamespace(
+            B=B, recs=recs, cands=cands, best=best, end_joined=end_joined,
+            fin_info=fin_info, by_read=by_read, read_arrays=read_arrays,
+            lens=lens, minsc=meta["minsc"], perfect=meta["perfect"],
+            nceil=meta["nceil"], exact_mult=res.exact_mult.astype(np.int64),
+            filtered=filtered, seeds_failed_r0=res.seeds_failed_r0,
+            res=res, sel=res, fw_seqs=fw_seqs)
+        # run host rectangle DP for candidates whose band window crosses an
+        # unambiguous-run boundary (ref: dp_framer.cpp:81 trimming)
+        rect_ids = np.nonzero(~res.c_interior)[0]
+        if len(rect_ids):
+            self._rect_dp(st, rect_ids)
+        # exact-only (seed_skip) reads keep only perfect-score candidates —
+        # the device applied this to its selection; mirror it for the host
+        # slow paths (ref: seed_skip semantics, bt2_search.cpp:3888-3909)
+        ss = meta.get("seed_skip")
+        if ss is not None:
+            ss = np.asarray(ss, bool)
+            if ss.any():
+                # keep perfect hits AND ungapped full-length <=1-sub hits
+                # (the up-front exact + 1mm stages run seed-free in the
+                # reference — see candgen stage 7)
+                drop = (ss[res.c_read]
+                        & (st.best != meta["perfect"][res.c_read])
+                        & ~(res.c_ungapped & (res.c_nm <= 1)))
+                st.best[drop] = NEG_INF
+        return st
+
+    def _rect_frame(self, st, ci):
+        """REFERENCE-space rectangle window for a run-boundary candidate,
+        with N leeway (ref: dp_framer.cpp:81-125 frameSeedExtensionRect):
+        the window is built from the full reference INCLUDING ambiguous
+        bases, so a read may span a short N gap between unambiguous runs,
+        and up to nceil columns may lie beyond the reference ends (padded
+        N by get_ref_stretch). Returns (rid, wl, wr) or None."""
+        i, _, diag = st.cands[int(ci)]
+        rl = int(st.lens[i])
+        mg2 = 2 * self.pol.maxhalf
+        ri = np.searchsorted(self._run_starts, max(diag, 0),
+                             side="right") - 1
+        ri = min(max(ri, 0), len(self._run_starts) - 1)
+        rid = int(self.idx.run_ref_id[ri])
+        roff = int(self.idx.run_ref_off[ri]) + (
+            diag - int(self._run_starts[ri]))
+        nc = int(st.nceil[i])
+        maxns = nc - 1 if nc >= rl else nc   # dp_framer.cpp:106-107
+        reflen = int(self.idx.ref_lens[rid])
+        wl = max(roff - mg2, -maxns)
+        wr = min(roff + rl - 1 + mg2, reflen + maxns - 1) + 1
+        return (rid, wl, wr) if wr > wl else None
+
+    def _rect_dp(self, st, rect_ids):
+        """Host rectangle-DP path for run-boundary candidates (rare),
+        framed in reference space with N leeway (_rect_frame)."""
+        jobs = []
+        for ci in rect_ids:
+            fr = self._rect_frame(st, ci)
+            if fr is not None:
+                jobs.append((int(ci),) + fr)
+        if not jobs:
+            return
+        lq = max(int(st.lens[st.cands[ci][0]]) for ci, _, _, _ in jobs)
+        wmax = max(wr - wl for _, _, wl, wr in jobs)
+        lq = -(-lq // 64) * 64
+        wmax = -(-wmax // 128) * 128
+        nr = len(jobs)
+        rd_m = np.full((nr, lq), 5, np.uint8)
+        mm_m = np.zeros((nr, lq), np.int32)
+        ref_m = np.full((nr, wmax), 4, np.uint8)
+        clens = np.zeros(nr, np.int32)
+        wlens = np.zeros(nr, np.int32)
+        for ri_, (ci, rid, wl, wr) in enumerate(jobs):
+            rd, mm, rl = st.read_arrays(ci)
+            rd_m[ri_, :rl] = rd
+            mm_m[ri_, :rl] = mm
+            clens[ri_] = rl
+            ref_m[ri_, : wr - wl] = self.idx.get_ref_stretch(rid, wl,
+                                                             wr - wl)
+            wlens[ri_] = wr - wl
+        # Host numpy engine for a few jobs: this runs between fused
+        # batches, where a device call would queue behind the in-flight
+        # fused batches. Rect jobs are rare (genome-edge/run-boundary
+        # windows); above 128 of them the rectangle DP goes to the device
+        # (the CUDA kernel of ops/csrc/sw.cu on the card).
+        if len(jobs) <= 128:
+            from ..ops.sw import sw_align_numpy_batch
+            r_best, r_bi, r_bj = sw_align_numpy_batch(
+                rd_m, clens, mm_m, ref_m, wlens, self.sw_cfg)
+        elif self.device.type == "cuda":
+            # a side stream: on the main stream the copies would wait for
+            # the fused batches still in flight there
+            if self._rect_stream is None:
+                self._rect_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._rect_stream):
+                r_best, r_bi, r_bj = sw_align_batch(
+                    rd_m, clens, mm_m, ref_m, wlens, self.sw_cfg,
+                    device=self.device)
+        else:
+            r_best, r_bi, r_bj = sw_align_batch(
+                rd_m, clens, mm_m, ref_m, wlens, self.sw_cfg,
+                device=self.device)
+        for ri_, (ci, rid, wl, wr) in enumerate(jobs):
+            st.best[ci] = int(r_best[ri_])
+            st.end_joined[ci] = wl + int(r_bj[ri_])
+            st.fin_info.set(ci, ("rectr", int(r_bi[ri_]), int(r_bj[ri_]),
+                                 ref_m[ri_, : wr - wl], (rid, wl)))
+
+    def _finish_fast(self, st) -> np.ndarray:
+        """Vectorized commit of the device-selected best alignment per read
+        (khits == 1). Returns the per-read handled mask; reads needing the
+        general path (rect candidates, gapped/local traceback fallbacks that
+        fail) stay unhandled."""
+        res = st.res
+        B = st.B
+        ok_reads = ~res.has_rect & ~st.filtered
+        handled = ok_reads & (res.best_ci < 0)   # unaligned: rec already set
+        w = np.nonzero(ok_reads & (res.best_ci >= 0))[0]
+        if not len(w):
+            return handled
+        # equal-score ties at distinct ends go through the general path for
+        # per-read-RNG selection (ref: selectByScore shuffles equal-score
+        # streaks, aln_sink.cpp:1577-1594)
+        NEGH0 = NEG_INF // 2
+        tie = ((res.sec_sc[w] > NEGH0)
+               & (res.sec_sc[w] == res.best_sc[w]))
+        w = w[~tie]
+        if not len(w):
+            return handled
+        k = res.best_ci[w]
+        fw_b = res.c_fw[k]
+        ws = res.c_ws[k].astype(np.int64)
+        bi = res.c_bi[k]
+        bk = res.c_bk[k]
+        score = res.c_score[k].astype(np.int64)
+        rl = st.lens[w]
+        cfg = self.sw_cfg
+
+        # secbest per read (ref: AlnSetSumm secbest; _select_unpaired logic)
+        NEGH = NEG_INF // 2
+        has_sec = res.sec_sc[w] > NEGH
+        exact_rule = (~has_sec) & (
+            (st.exact_mult[w] > self._resolve_cap())
+            | (st.exact_mult[w] > 1))
+
+        # ungapped certification + NM computed ON DEVICE against the
+        # gathered band (candgen stage 6) — no reference access here
+        ungapped = (not cfg.local) & res.c_ungapped[k]
+        jp = ws + bk                       # joined pos of alignment start
+        ref_id, ref_off, _ = self.idx.joined_to_ref(jp)
+        sec_eff = np.where(has_sec, res.sec_sc[w],
+                           st.perfect[w]).astype(np.int64)
+        mapqs = mapq_batch(MAPQ_V, score, sec_eff, has_sec | exact_rule,
+                           st.minsc[w], st.perfect[w], self.sc.monotone)
+
+        for t in np.nonzero(~ungapped)[0]:
+            # rare: gapped or local winner — per-read traceback path
+            i = int(w[t])
+            sec = (int(res.sec_sc[i]) if has_sec[t]
+                   else (int(st.perfect[i]) if exact_rule[t] else None))
+            if self.finish_candidate(st, i, int(res.best_ci[i]),
+                                     int(score[t]), sec):
+                handled[i] = True
+
+        # vectorized commit of the ungapped winners: store column arrays;
+        # AlnRec objects materialize lazily (LazyRecs/FastSoA), and the
+        # mismatch detail (MD) is only derived when something asks for it
+        u = np.nonzero(ungapped)[0]
+        if len(u):
+            wu = w[u]
+            soa = self._soa_from_best(
+                st, wu, fw_b[u], ref_id[u], ref_off[u], score[u],
+                (has_sec | exact_rule)[u],
+                np.where(has_sec, res.sec_sc[w],
+                         st.perfect[w]).astype(np.int64)[u],
+                mapqs[u], res.c_nm[k][u], rl[u], jp[u])
+            handled[wu] = True
+            st.recs.soa = soa
+        return handled
+
+    def _soa_from_best(self, st, wu, fw, ref_id, pos, score, sec_has, sec,
+                       mapq, nm, rl, jp) -> FastSoA:
+        """Assemble a FastSoA for the committed reads `wu` (column arrays
+        already selected), with a lazy MD builder over the subset."""
+        B = st.B
+        soa = FastSoA()
+        soa.filled = np.zeros(B, bool)
+        soa.filled[wu] = True
+        soa.tidx = np.full(B, -1, np.int32)
+        soa.tidx[wu] = np.arange(len(wu), dtype=np.int32)
+        soa.fw = fw
+        soa.ref_id = ref_id
+        soa.pos = pos
+        soa.score = score
+        soa.sec_has = sec_has
+        soa.sec = sec
+        soa.mapq = mapq
+        soa.nm = nm
+        soa.rl = rl
+        joined = self.idx.joined
+        fw_seqs = st.fw_seqs
+
+        def build_mm():
+            # derive per-read mismatch (column, ref base) lists for MD
+            # in one vectorized pass over the committed subset
+            Lm = int(rl.max(initial=1))
+            cols = jp[:, None] + np.arange(Lm)
+            refm = joined[np.clip(cols, 0, len(joined) - 1)]
+            rd = fw_seqs[wu, :Lm].copy()
+            rcm = ~fw
+            if rcm.any():
+                rr = rd[rcm]
+                ll = rl[rcm]
+                src = ll[:, None] - 1 - np.arange(Lm)[None, :]
+                ok = src >= 0
+                g = np.take_along_axis(rr, np.clip(src, 0, Lm - 1),
+                                       axis=1)
+                rd[rcm] = np.where(ok, np.where(g <= 3, 3 - g, g), 5)
+            jmask = np.arange(Lm)[None, :] < rl[:, None]
+            mmn = ((rd != refm) | (rd > 3)) & jmask
+            rows, cols_mm = np.nonzero(mmn)
+            split = np.searchsorted(rows, np.arange(len(jp) + 1))
+            return (split.astype(np.int64), cols_mm,
+                    refm[rows, cols_mm])
+
+        soa._mm_builder = build_mm
+        return soa
+
+    def _resolve_cap(self) -> int:
+        """Effective per-range SA-resolution cap PER DEVICE CALL: boosted
+        for large -k / -a (ref: ReportingParams::mult boosting ROWM/POSF,
+        aln_sink.h:264-283). Under -a the host path's exact-hit
+        enumeration loops over chunks of this size, so the TOTAL is
+        unbounded like the reference's (aln_sink.h:288)."""
+        k = self.pol.khits
+        if k <= self.pol.max_sa_elts:
+            return self.pol.max_sa_elts
+        return int(min(k + 1, _RESOLVE_CHUNK))
+
+
+    def read_seed(self, st, i) -> int:
+        """Per-read 32-bit seed from the read content (ref: pat.cpp:129
+        genRandSeed). With --non-deterministic, an arbitrary stream seeded
+        from wall-clock time (ref: bt2_search.cpp:3215-3218 rndArb)."""
+        if self.pol.non_deterministic:
+            if not hasattr(self, "_rnd_arb"):
+                import time as _t
+                self._rnd_arb = RandomSource(int(_t.time_ns()) & 0xFFFFFFFF)
+            return self._rnd_arb.next_u32()
+        rec = st.recs[i]
+        li = int(st.lens[i])
+        codes = np.minimum(st.fw_seqs[i, :li], 4)
+        q = np.frombuffer(rec.orig_qual, np.uint8)[:li]
+        name = rec.name.encode() if isinstance(rec.name, str) else rec.name
+        return gen_rand_seed(codes, q, name, self.pol.seed)
+
+    def read_rnd(self, st, i) -> RandomSource:
+        """Per-read tie-break generator (ref: bt2_search.cpp:3386
+        rnd.init(read.seed)). The reference threads one stream through its
+        sequential search; our batch pipeline draws a fresh stream at
+        selection, keeping each read's choice deterministic and
+        batch-independent."""
+        return RandomSource(self.read_seed(st, i))
+
+    def scored_candidates(self, st, i, rnd: RandomSource | None = None):
+        """Valid candidates of read i, redundancy-suppressed (dedup on
+        (strand, joined end position) — ref: aligner_sw_driver.h:300
+        redAnchor / seenDiags), ordered best-first with equal-score streaks
+        shuffled by the per-read generator (ref: aln_sink.cpp:1501
+        selectByScore)."""
+        msc = int(st.minsc[i])
+        by_end: dict[tuple, tuple] = {}
+        for ci in st.by_read.get(i, []):
+            if st.best[ci] < msc or st.fin_info[ci] is None:
+                continue
+            key = (st.cands[ci][1], int(st.end_joined[ci]))
+            cur = by_end.get(key)
+            cand_t = (int(st.best[ci]), ci)
+            if cur is None or cand_t[0] > cur[0]:
+                by_end[key] = cand_t
+        items = [(sc, (st.cands[ci][2], not st.cands[ci][1]), ci)
+                 for sc, ci in by_end.values()]
+        if rnd is None:
+            rnd = self.read_rnd(st, i)
+        return [(sc, ci) for sc, _, ci in select_by_score_order(items, rnd)]
+
+    def finish_candidate(self, st, i, ci, bsc, sec, rec=None) -> bool:
+        """Traceback + commit candidate ci of read i into rec (default:
+        the read's record). Returns False if the candidate is rejected."""
+        rd, mm, _ = st.read_arrays(ci)
+        _, is_fw, diag = st.cands[ci]
+        kind, fi, fj, window, wstart = st.fin_info[ci]
+        return self._finish(
+            rec if rec is not None else st.recs[i], i, is_fw,
+            int(st.lens[i]), bsc, sec, kind, fi, fj, rd, mm, window, wstart,
+            int(st.minsc[i]), int(st.perfect[i]), int(st.nceil[i]))
+
+    def _select_unpaired(self, st, i) -> list:
+        """Fill the read's primary record; with khits > 1 (-k) or -a,
+        also return secondary records (SAM 0x100, MAPQ 255 — ref: -k
+        semantics, ReportingParams khits)."""
+        scored = self.scored_candidates(st, i)
+        extras = []
+        primary_done = False
+        k = max(1, self.pol.khits)
+        # -M sampling (ref: aln_sink.cpp:271-277 EXIT_SHORT_CIRCUIT_M):
+        # when more than mhits distinct alignments exist, report exactly 1
+        # — the RNG-sampled best (scored_candidates already shuffles
+        # equal-score streaks with the per-read LCG, matching
+        # selectByScore, aln_sink.cpp:1577-1594) — and flag the read
+        # repetitive (YM:i:1 under print_ym). exact_mult counts exact
+        # copies hidden by range clipping.
+        maxed = (self.pol.msample and self.pol.mhits > 0
+                 and (len(scored) > self.pol.mhits
+                      or st.exact_mult[i] > self.pol.mhits))
+        if maxed:
+            k = 1
+            st.recs[i].ym = True
+        fail_streak = 0
+        for rank, (bsc, bci) in enumerate(scored):
+            # preset DPS as a retry-streak cap (see SearchPolicy.dp_streak)
+            if fail_streak > self.pol.dp_streak:
+                break
+            sec = None
+            if len(scored) > rank + 1:
+                sec = scored[rank + 1][0]
+            elif st.exact_mult[i] > self._resolve_cap() or \
+                    (st.exact_mult[i] > 1 and len(scored) == rank + 1):
+                sec = int(st.perfect[i])  # other exact copies exist
+            if not primary_done:
+                if self.finish_candidate(st, i, bci, bsc, sec):
+                    primary_done = True
+                    fail_streak = 0
+                    if sec is None and not self.pol.msample:
+                        # -k/-a modes can't "max out" (canMax false) and
+                        # the search is not exhausted: MAPQ unavailable
+                        # (ref: unique.h:125 — !canMax && !exhausted &&
+                        # !hasSecbest -> 255; verified on the a_on_unique
+                        # tier golden). The reference's `exhausted`
+                        # condition is dropped here: our batch search has
+                        # no per-read exhaustion state, so an exhausted
+                        # -k/-a search would get 255 where the reference
+                        # computes a real MAPQ (golden-backed on all
+                        # tested cases; revisit if a tier case can
+                        # construct an exhausted -a search).
+                        st.recs[i].mapq = 255
+                    if k == 1:
+                        break
+                else:
+                    fail_streak += 1
+                continue
+            if len(extras) + 1 >= k:
+                break
+            rec = AlnRec(name=st.recs[i].name, aligned=False,
+                         seq=st.recs[i].orig_seq, qual=st.recs[i].orig_qual,
+                         orig_seq=st.recs[i].orig_seq,
+                         orig_qual=st.recs[i].orig_qual)
+            if self.finish_candidate(st, i, bci, bsc, sec, rec=rec):
+                rec.secondary = True
+                rec.mapq = 255
+                extras.append(rec)
+                fail_streak = 0
+            else:
+                fail_streak += 1
+        return extras
+
+    def _finish(self, rec: AlnRec, i, is_fw, rl, bsc, sec, kind, bi, bk,
+                rd, mm, window, wstart, msc, per, nc) -> bool:
+        """bi/bk: DP end cell (band coords for kind='band', rectangle
+        row/col for kind='rect'); window: ref codes starting at joined
+        position wstart. Returns False if the candidate must be rejected
+        (run straddle or N-ceiling), so the caller can try the next one."""
+        cfg = self.sw_cfg
+        read_start, read_end = 0, rl
+        if kind == "band":
+            # fast path: pure-diagonal alignment along band offset bk
+            if not cfg.local and bi == rl - 1 and \
+                    ungapped_score(rd, mm, window, bk, cfg) == bsc:
+                edits = edits_from_ungapped(rd[:rl], window, bk)
+                start_col = bk
+            else:
+                edits, start_col, read_start = banded_traceback(
+                    rd[:rl], mm, window, cfg, bi, bk, K=self.band)
+                read_end = bi + 1
+        else:
+            start_col = bk - (rl - 1)
+            if not cfg.local and start_col >= 0 and \
+                    ungapped_score(rd, mm, window, start_col, cfg) == bsc:
+                edits = edits_from_ungapped(rd[:rl], window, start_col)
+            else:
+                edits, start_col, read_start = rect_traceback(
+                    rd[:rl], mm, window, cfg, bi, bk)
+                read_end = bi + 1
+        stats = cigar_md_stats(rl, edits, read_start, read_end)
+        xn = int((window[max(0, start_col):start_col + stats["ref_span"]]
+                  > 3).sum())
+        if xn > nc:
+            return False  # too many reference Ns (ref: nCeil / maxns)
+        if kind == "rectr":
+            # reference-space rectangle (N-leeway framing, _rect_frame):
+            # coordinates are direct; reject reference-end overhangs
+            # (ref: gReportOverhangs defaults false)
+            rid, wl = wstart
+            pos = wl + start_col
+            if pos < 0 or pos + stats["ref_span"] > int(
+                    self.idx.ref_lens[rid]):
+                return False
+            ref_id = np.array([rid])
+            ref_off = np.array([pos])
+        else:
+            joined_pos = wstart + start_col
+            ref_id, ref_off, valid = self.idx.joined_to_ref(
+                np.array([joined_pos]), aln_len=stats["ref_span"] - xn)
+            if not valid[0]:
+                return False  # straddles a run boundary: reject
+        rec.aligned = True
+        rec.fw = bool(is_fw)
+        rec.ref_id = int(ref_id[0])
+        rec.pos = int(ref_off[0])
+        rec.score = bsc
+        rec.secbest = sec
+        rec.cigar = stats["cigar"]
+        rec.md = stats["md"]
+        rec.nm, rec.xm, rec.xo, rec.xg = (
+            stats["nm"], stats["xm"], stats["xo"], stats["xg"])
+        rec.xn = xn
+        rec.mapq = mapq_fn(MAPQ_V)(bsc, sec, msc, per, self.sc.monotone)
+        if rec.fw:
+            rec.seq, rec.qual = rec.orig_seq, rec.orig_qual
+        else:
+            rec.seq = dna.revcomp_ascii(rec.orig_seq)
+            rec.qual = rec.orig_qual[::-1]
+        return True

@@ -1,0 +1,82 @@
+"""The port's banded DP (bowtie2_server_tpu_torch/ops/sw_banded.py) against
+the JAX package's: the plain torch version equals `_banded_tile_xla` and the
+Pallas kernel (interpreted on the CPU) exactly, on best/bi/bk."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from bowtie2_server_tpu.ops import sw as jsw  # noqa: E402
+from bowtie2_server_tpu.ops import sw_banded as jsb  # noqa: E402
+from bowtie2_server_tpu_torch.ops import sw_banded as tsb  # noqa: E402
+from bowtie2_server_tpu_torch.ops.sw import SwConfig  # noqa: E402
+from torch_tiles import CFGS, P, banded_tile as make_tile  # noqa: E402
+
+
+@pytest.mark.parametrize("K", [32, 64])
+@pytest.mark.parametrize("name", list(CFGS))
+def test_banded_torch_equals_jax(name, K):
+    lq = 40
+    rd, mm, lens, band = make_tile(K + len(name), lq, K)
+    jcfg = jsw.SwConfig(**CFGS[name])
+    tcfg = SwConfig(**CFGS[name])
+    want_xla = [np.asarray(x) for x in jsb._banded_tile_xla(
+        jcfg, K, jnp.asarray(rd), jnp.asarray(mm), jnp.asarray(lens),
+        jnp.asarray(band))]
+    call = jsb._pallas_banded(jcfg, K, lq, 1, True)
+    want_pl = [np.asarray(x)[0] for x in call(
+        jnp.asarray(rd), jnp.asarray(mm), jnp.asarray(lens[None, :]),
+        jnp.asarray(band))]
+    got = tsb.banded_dp(tcfg, K, *(torch.from_numpy(a) for a in
+                                   (rd, mm, lens, band)))
+    for w_x, w_p, g in zip(want_xla, want_pl, got):
+        np.testing.assert_array_equal(w_x, w_p)
+        np.testing.assert_array_equal(g.numpy(), w_x)
+
+
+@pytest.mark.parametrize("name", ["e2e", "local"])
+def test_sw_banded_batch_equals_jax(name):
+    """Host wrapper: [B, rows] uint8 problems, B not a tile multiple."""
+    K, lq, B = 32, 30, 77
+    rd, mm, lens, band = make_tile(7, lq, K)
+    rd8, band8 = rd.T[:B].astype(np.uint8), band.T[:B].astype(np.uint8)
+    cfg = CFGS[name]
+    want = jsb.sw_banded_batch(rd8, lens[:B], mm.T[:B], band8,
+                               jsw.SwConfig(**cfg), K=K, engine="xla")
+    got = tsb.sw_banded_batch(rd8, lens[:B], mm.T[:B], band8,
+                              SwConfig(**cfg), K=K, device="cpu")
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["e2e", "local"])
+def test_banded_traceback_equals_jax(name):
+    """The host traceback of the gapped winners gives the same edits."""
+    K, lq = 64, 50
+    rd, mm, lens, band = make_tile(11, lq, K)
+    cfg = CFGS[name]
+    jcfg, tcfg = jsw.SwConfig(**cfg), SwConfig(**cfg)
+    for p in range(0, P, 3):
+        n = int(lens[p])
+        r, m, b = rd[:n, p], mm[:n, p], band[: n + K, p]
+        best, bi, bk = jsb.banded_best_numpy(r, m, b, jcfg, K)
+        assert tsb.banded_best_numpy(r, m, b, tcfg, K) == (best, bi, bk)
+        want = jsb.banded_traceback(r, m, b, jcfg, bi, bk, K=K)
+        got = tsb.banded_traceback(r, m, b, tcfg, bi, bk, K=K)
+        assert got == want, f"problem {p}"
+
+
+def test_banded_dp_checks_inputs():
+    cfg = SwConfig()
+    rd = torch.zeros((8, 4), dtype=torch.int32)
+    band = torch.zeros((8 + 32, 4), dtype=torch.int32)
+    lens = torch.full((4,), 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="band"):
+        tsb.banded_dp(cfg, 32, rd, rd, lens, band[:-1])
+    with pytest.raises(TypeError, match="int32"):
+        tsb.banded_dp(cfg, 32, rd.long(), rd, lens, band)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsb.banded_dp(cfg, 32, rd, rd, lens,
+                      torch.zeros((4, 40), dtype=torch.int32).T)
