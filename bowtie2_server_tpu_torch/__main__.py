@@ -4,6 +4,10 @@ Usage:
   python -m bowtie2_server_tpu_torch build <ref.fa> <index_base>
   python -m bowtie2_server_tpu_torch align -x <index_base> -U <reads.fq>
          [-S out.sam] [--end-to-end | --local] [--seed N] [--device cuda]
+  python -m bowtie2_server_tpu_torch align -x <index_base> -1 <m1.fq>
+         -2 <m2.fq> [-S out.sam] [-I minins] [-X maxins] [--fr | --rf | --ff]
+         [--no-mixed] [--no-discordant] [--end-to-end | --local] [--seed N]
+         [--device cuda]
 
 `align` writes the same SAM records and alignment summary as
 `python -m bowtie2_server_tpu align` with the same options. Every other
@@ -32,15 +36,17 @@ def cmd_build(args):
 
 
 def cmd_align(args):
-    from .align.pipeline import SearchPolicy, UnpairedAligner
+    from .align.pipeline import SearchPolicy
     from .index.fm import FmIndex
-    from .io.fastq import iter_fastq, prefetch
     from .io.metrics import AlnSummary
-    from .io.sam import sam_format_batch_native, sam_header, sam_record
+    from .io.sam import sam_header
     from .utils.presets import preset_params
 
-    if args.index is None or args.U is None:
-        sys.exit("Error: align needs -x <index_base> and -U <reads.fq>")
+    paired = args.m1 is not None or args.m2 is not None
+    if args.index is None or (args.U is None) == (not paired) or \
+            (paired and None in (args.m1, args.m2)):
+        sys.exit("Error: align needs -x <index_base> and either -U "
+                 "<reads.fq> or -1 <m1.fq> -2 <m2.fq>")
     idx = FmIndex.load(args.index)
     sc, polkw = preset_params(None, args.local)
     pol = SearchPolicy(khits=1, seed=args.seed, **polkw)
@@ -48,6 +54,61 @@ def cmd_align(args):
     out = open(args.S, "w") if args.S else sys.stdout
     out.write(sam_header(names, idx.ref_lens, " ".join(sys.argv)))
     summ = AlnSummary()
+    t0 = time.time()
+    if paired:
+        n, dev = _align_paired(args, idx, sc, pol, names, out, summ)
+    else:
+        n, dev = _align_unpaired(args, idx, sc, pol, names, out, summ)
+    dt = time.time() - t0
+    summ.print_summary(sys.stderr)
+    print(f"# {n} reads in {dt:.1f}s = {n/max(dt,1e-9):.0f} reads/s "
+          f"on {dev}", file=sys.stderr)
+    if args.S:
+        out.close()
+
+
+def _align_paired(args, idx, sc, pol, names, out, summ):
+    """-1/-2: pairs of FASTQ batches through the PairedAligner, two pair
+    batches in flight; both records of a pair are written in turn (ref:
+    the paired FASTQ branch of the JAX CLI). Returns (reads, device)."""
+    from .align.paired import PairedAligner, PairedPolicy
+    from .io.fastq import iter_fastq, prefetch
+    from .io.sam import sam_record
+
+    pe = PairedPolicy(pol=args.orient, minfrag=args.minins,
+                      maxfrag=args.maxins)
+    pal = PairedAligner(idx, scoring=sc, policy=pol, pe=pe,
+                        device=args.device, no_mixed=args.no_mixed,
+                        no_discordant=args.no_discordant)
+    it1 = prefetch(iter_fastq(args.m1, batch_size=_BATCH))
+    it2 = prefetch(iter_fastq(args.m2, batch_size=_BATCH))
+    n = 0
+
+    def emit(pairs):
+        for r1, r2 in pairs:
+            out.write(sam_record(r1, names) + "\n")
+            out.write(sam_record(r2, names) + "\n")
+            summ.add_pair(r1, r2)
+        return 2 * len(pairs)
+
+    inflight = deque()
+    for b1, b2 in zip(it1, it2):
+        inflight.append(pal.align_async(b1, b2))
+        if len(inflight) >= 2:
+            n += emit(pal.align_wait(inflight.popleft()))
+    while inflight:
+        n += emit(pal.align_wait(inflight.popleft()))
+    return n, pal.up.device
+
+
+def _align_unpaired(args, idx, sc, pol, names, out, summ):
+    """-U: batches through the UnpairedAligner, three in flight; fast-path
+    batches are formatted by the native SAM writer. Returns (reads,
+    device)."""
+    from .align.pipeline import UnpairedAligner
+    from .io.fastq import iter_fastq, prefetch
+    from .io.sam import sam_format_batch_native, sam_record
+
     al = UnpairedAligner(idx, scoring=sc, policy=pol, device=args.device)
 
     def batch_results():
@@ -61,7 +122,6 @@ def cmd_align(args):
         while inflight:
             yield al.align_wait(inflight.popleft())
 
-    t0 = time.time()
     n = 0
     out_b = getattr(out, "buffer", None)
     for recs in batch_results():
@@ -79,12 +139,7 @@ def cmd_align(args):
                 out.write(sam_record(r, names) + "\n")
                 summ.add_unpaired(r)
         n += len(recs)
-    dt = time.time() - t0
-    summ.print_summary(sys.stderr)
-    print(f"# {n} reads in {dt:.1f}s = {n/max(dt,1e-9):.0f} reads/s "
-          f"on {al.device}", file=sys.stderr)
-    if args.S:
-        out.close()
+    return n, al.device
 
 
 def make_parser():
@@ -100,6 +155,8 @@ def make_parser():
     pa = sub.add_parser("align", allow_abbrev=False)
     pa.add_argument("-x", "--index", dest="index", default=None)
     pa.add_argument("-U", "--unpaired", dest="U", default=None)
+    pa.add_argument("-1", dest="m1", default=None)
+    pa.add_argument("-2", dest="m2", default=None)
     pa.add_argument("-S", "--output", dest="S", default=None)
     # --local / --end-to-end share one dest: the last one wins, as in the
     # reference (bt2_search.cpp:1415/1419)
@@ -108,6 +165,15 @@ def make_parser():
     pa.add_argument("--end-to-end", dest="local", action="store_const",
                     const=False)
     pa.add_argument("--seed", type=int, default=0)
+    pa.add_argument("-I", "--minins", dest="minins", type=int, default=0)
+    pa.add_argument("-X", "--maxins", dest="maxins", type=int, default=500)
+    pa.add_argument("--fr", dest="orient", action="store_const",
+                    const="FR", default="FR")
+    pa.add_argument("--rf", dest="orient", action="store_const", const="RF")
+    pa.add_argument("--ff", dest="orient", action="store_const", const="FF")
+    pa.add_argument("--no-mixed", dest="no_mixed", action="store_true")
+    pa.add_argument("--no-discordant", dest="no_discordant",
+                    action="store_true")
     pa.add_argument("--device", default="cuda",
                     help="torch device the pipeline runs on (default cuda)")
     pa.set_defaults(fn=cmd_align)

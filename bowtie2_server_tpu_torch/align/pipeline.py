@@ -2,9 +2,14 @@
 multiseedSearchWorker, aligner_sw_driver.cpp:756 SwDriver::extendSeeds).
 Port of bowtie2_server_tpu/align/pipeline.py: the UnpairedAligner fast
 path, which runs the fused device pipeline of align/candgen.py on the
-device given at construction. The reference package's host path
+device given at construction, and the parts the paired aligner
+(align/paired.py) builds on: candidate appends for mate rescue, the
+concordant-pair columns of FastSoA, `revcomp_batch`, `compute_filtered`
+and `apply_seed_skip` (not `ConcatRecs`: only the big-index batch halving
+of ROADMAP Queue A item 12 builds one). The reference package's host path
 (`_collect_host`: -a, -k above 1024, overflow after capacity escalation)
-is not ported yet and raises NotImplementedError (ROADMAP Queue A item 11).
+is not ported yet and raises NotImplementedError (ROADMAP Queue A item
+11).
 
 Where the reference advances one read at a time through
 filters -> exact sweep -> 1mm -> seed rounds -> extend, this pipeline
@@ -31,6 +36,7 @@ stream position at selection depends on its sequential search history).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -157,18 +163,25 @@ class AlnRec:
 
 class ArrayCands:
     """(read, fw, diag) candidate list backed by flat arrays (from the fused
-    device pipeline)."""
+    device pipeline), with append support for rescue-added candidates."""
 
-    __slots__ = ("_r", "_f", "_d")
+    __slots__ = ("_r", "_f", "_d", "extra")
 
     def __init__(self, read, fw, diag):
         self._r, self._f, self._d = read, fw, diag
+        self.extra: list[tuple] = []
 
     def __len__(self):
-        return len(self._r)
+        return len(self._r) + len(self.extra)
 
     def __getitem__(self, ci):
-        return (int(self._r[ci]), bool(self._f[ci]), int(self._d[ci]))
+        n = len(self._r)
+        if ci < n:
+            return (int(self._r[ci]), bool(self._f[ci]), int(self._d[ci]))
+        return self.extra[ci - n]
+
+    def append(self, t):
+        self.extra.append(t)
 
 
 class LazyByRead(dict):
@@ -286,6 +299,10 @@ class LazyFin:
     def set(self, ci, v):
         self._over[ci] = v
 
+    def append(self, v):
+        self._over[self._n] = v
+        self._n += 1
+
 
 class FastSoA:
     """Vectorized results of the ungapped fast-commit path (_finish_fast):
@@ -296,13 +313,14 @@ class FastSoA:
 
     __slots__ = ("filled", "tidx", "fw", "ref_id", "pos", "score",
                  "sec_has", "sec", "mapq", "nm", "rl",
-                 "mm_split", "mm_cols", "mm_ref", "_mm_builder")
+                 "mm_split", "mm_cols", "mm_ref", "_mm_builder", "pair")
 
     _BASES = "ACGTN"
 
     def __init__(self):
         self._mm_builder = None
         self.mm_split = None
+        self.pair = None   # concordant-pair column dict (paired fast path)
 
     def _ensure_mm(self):
         """Mismatch detail is derived lazily (one vectorized pass) the
@@ -347,6 +365,18 @@ class FastSoA:
         else:
             rec.seq = dna.revcomp_ascii(rec.orig_seq)
             rec.qual = rec.orig_qual[::-1]
+        if self.pair is not None:
+            p = self.pair
+            rec.paired = True
+            rec.mate1 = p["mate1"]
+            rec.proper = True
+            rec.yt = "CP"
+            rec.mate_aligned = True
+            rec.mate_fw = bool(p["mate_fw"][t])
+            rec.mate_ref_id = int(p["mate_ref_id"][t])
+            rec.mate_pos = int(p["mate_pos"][t])
+            rec.tlen = int(p["tlen"][t])
+            rec.ys = int(p["ys"][t])
 
 
 class LazyRecs:
@@ -416,6 +446,18 @@ class LazyRecs:
         return n
 
 
+def revcomp_batch(seqs, quals, lens):
+    """Vectorized per-row reverse complement respecting lengths."""
+    B, L = seqs.shape
+    j = np.arange(L)[None, :]
+    src = lens[:, None] - 1 - j
+    valid = src >= 0
+    src_c = np.clip(src, 0, L - 1)
+    rc = np.where(valid, dna.COMP[seqs[np.arange(B)[:, None], src_c]], 5)
+    rq = np.where(valid, quals[np.arange(B)[:, None], src_c], 0)
+    return rc.astype(np.uint8), rq.astype(np.int32)
+
+
 class UnpairedAligner:
     def __init__(self, index: FmIndex, scoring: Scoring | None = None,
                  policy: SearchPolicy | None = None, *, device,
@@ -448,9 +490,29 @@ class UnpairedAligner:
                 "not ported yet (ROADMAP Queue A item 11)")
         self.candgen = CandGen(index, self.pol, self.sw_cfg, self.band,
                                self.device, mesh=mesh)
-        self._rect_stream = None   # CUDA stream of the rect DP (_rect_dp)
+        self._rect_stream = None   # CUDA stream of the rect DPs (rect_stream)
 
     # ---- the batch pipeline ----
+
+    def _filters(self, batch: ReadBatch) -> dict:
+        """Per-read length-derived limits and the three read filters
+        (ref: bt2_search.cpp:3323-3352): length 0, too many Ns, perfect
+        score below the minimum."""
+        lens = batch.lens
+        L = batch.seqs.shape[1]
+        n_counts = ((batch.seqs > 3)
+                    & (np.arange(L)[None, :] < lens[:, None])).sum(1)
+        nceil = per_len(self.sc.n_ceil_for, lens)
+        minsc = per_len(self.sc.score_min_for, lens)
+        perfect = per_len(self.sc.perfect_score, lens)
+        return dict(nceil=nceil, minsc=minsc, perfect=perfect,
+                    len_bad=lens == 0, n_bad=n_counts > nceil,
+                    sc_bad=perfect < minsc)
+
+    def compute_filtered(self, batch: ReadBatch) -> np.ndarray:
+        """Per-read filter mask without running the pipeline."""
+        f = self._filters(batch)
+        return f["len_bad"] | f["n_bad"] | f["sc_bad"]
 
     def align_batch(self, batch: ReadBatch) -> list[AlnRec]:
         return self.align_wait(self.align_async(batch))
@@ -500,15 +562,9 @@ class UnpairedAligner:
                 "-a and -k above 1024 take the host path, not ported yet "
                 "(ROADMAP Queue A item 11)")
         lens = batch.lens
-        B, L = batch.seqs.shape
-        n_counts = ((batch.seqs > 3)
-                    & (np.arange(L)[None, :] < lens[:, None])).sum(1)
-        nceil = per_len(self.sc.n_ceil_for, lens)
-        minsc = per_len(self.sc.score_min_for, lens)
-        perfect = per_len(self.sc.perfect_score, lens)
-        len_bad = lens == 0
-        n_bad = n_counts > nceil
-        sc_bad = perfect < minsc
+        f = self._filters(batch)
+        nceil, minsc, perfect = f["nceil"], f["minsc"], f["perfect"]
+        len_bad, n_bad, sc_bad = f["len_bad"], f["n_bad"], f["sc_bad"]
         filtered = len_bad | n_bad | sc_bad
         yf_codes = np.where(len_bad, 0,
                             np.where(n_bad, 1, np.where(sc_bad, 2, 3)))
@@ -647,6 +703,59 @@ class UnpairedAligner:
                 st.best[drop] = NEG_INF
         return st
 
+    def apply_seed_skip(self, st, mask) -> None:
+        """Host-side application of the paired seed_skip rule for reads in
+        `mask` (ref: bt2_search.cpp:3888/3909 — mate-1 round-0 seed failure
+        aborts mate-2's seed stage, leaving only the up-front exact/1mm
+        stages). Applying it HERE, after an unconditional mate-2 dispatch,
+        removes the st1-fetch -> st2-dispatch data dependency so both
+        mates' device work runs back-to-back (the paired-throughput
+        critical path). Mirrors the device rule (candgen stage 7): keep
+        candidates scoring `perfect` (exactSweep's set) or ungapped with
+        <= 1 substitution (oneMmSearch's set); recompute the per-read
+        best/secbest selection exactly as the device does (max score ->
+        leftmost diag -> fw preferred -> largest candidate index)."""
+        res = st.sel
+        mask = np.asarray(mask, bool)
+        for i in np.nonzero(mask)[0]:
+            i = int(i)
+            ids = np.asarray(st.by_read.get(i, []), np.int64)
+            if not len(ids):
+                continue
+            allowed = ((st.best[ids] == st.perfect[i])
+                       | (res.c_ungapped[ids] & (res.c_nm[ids] <= 1)))
+            st.best[ids[~allowed]] = NEG_INF
+            sel = ids[allowed & res.c_interior[ids]
+                      & (st.best[ids] >= st.minsc[i])]
+            if not len(sel):
+                res.best_ci[i] = -1
+                res.best_sc[i] = NEG_INF
+                res.sec_sc[i] = NEG_INF
+                continue
+            sc = st.best[sel]
+            m1 = sc == sc.max()
+            dg = res.c_diag[sel]
+            m2 = m1 & (dg == dg[m1].min())
+            fwv = res.c_fw[sel].astype(np.int64)
+            m3 = m2 & (fwv == fwv[m2].max())
+            bci = int(sel[m3].max())
+            res.best_ci[i] = bci
+            res.best_sc[i] = st.best[bci]
+            dist = (res.c_end[sel] != res.c_end[bci]) | \
+                   (res.c_fw[sel] != res.c_fw[bci])
+            res.sec_sc[i] = int(sc[dist].max()) if dist.any() else NEG_INF
+
+    def rect_stream(self):
+        """Context of the host-driven rectangle DPs (run-boundary
+        candidates, mate rescue): on CUDA a side stream, because on the
+        main stream their copies from pageable memory would wait for the
+        fused batches still in flight there; on the CPU nothing."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        if self._rect_stream is None:
+            self._rect_stream = torch.cuda.Stream(self.device)
+        return torch.cuda.stream(self._rect_stream)
+
     def _rect_frame(self, st, ci):
         """REFERENCE-space rectangle window for a run-boundary candidate,
         with N leeway (ref: dp_framer.cpp:81-125 frameSeedExtensionRect):
@@ -707,19 +816,11 @@ class UnpairedAligner:
             from ..ops.sw import sw_align_numpy_batch
             r_best, r_bi, r_bj = sw_align_numpy_batch(
                 rd_m, clens, mm_m, ref_m, wlens, self.sw_cfg)
-        elif self.device.type == "cuda":
-            # a side stream: on the main stream the copies would wait for
-            # the fused batches still in flight there
-            if self._rect_stream is None:
-                self._rect_stream = torch.cuda.Stream(self.device)
-            with torch.cuda.stream(self._rect_stream):
+        else:
+            with self.rect_stream():
                 r_best, r_bi, r_bj = sw_align_batch(
                     rd_m, clens, mm_m, ref_m, wlens, self.sw_cfg,
                     device=self.device)
-        else:
-            r_best, r_bi, r_bj = sw_align_batch(
-                rd_m, clens, mm_m, ref_m, wlens, self.sw_cfg,
-                device=self.device)
         for ri_, (ci, rid, wl, wr) in enumerate(jobs):
             st.best[ci] = int(r_best[ri_])
             st.end_joined[ci] = wl + int(r_bj[ri_])

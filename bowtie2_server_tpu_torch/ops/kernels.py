@@ -17,10 +17,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 _CSRC = Path(__file__).parent / "csrc"
@@ -29,7 +31,7 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"sw_banded": 0, "sw": 0}
+LAUNCHES = {"sw_banded": 0, "sw_banded_wide": 0, "sw": 0, "alu_probe": 0}
 
 _LIB = None
 
@@ -99,11 +101,13 @@ def lib():
         lb = ctypes.CDLL(str(so))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         cfg = [ci] * 7        # ma npen rdg_open rdg_ext rfg_open rfg_ext gapbar
-        lb.bt2_sw_banded.restype = ci
-        lb.bt2_sw_banded.argtypes = (
-            [vp] * 7 + [ci, ci, ci] + cfg + [ci, vp])
+        for fn in (lb.bt2_sw_banded, lb.bt2_sw_banded_wide):
+            fn.restype = ci
+            fn.argtypes = [vp] * 7 + [ci, ci, ci] + cfg + [ci, vp]
         lb.bt2_sw.restype = ci
         lb.bt2_sw.argtypes = [vp] * 8 + [ci, ci, ci] + cfg + [ci, vp]
+        lb.bt2_alu_probe.restype = ci
+        lb.bt2_alu_probe.argtypes = [vp, vp, ci, ci, vp]
         _LIB = lb
     return _LIB
 
@@ -118,3 +122,33 @@ def cfg_args(cfg) -> list[int]:
     """SwConfig as the C entry points' scoring arguments."""
     return [int(cfg.ma), int(cfg.npen), int(cfg.rdg_open), int(cfg.rdg_ext),
             int(cfg.rfg_open), int(cfg.rfg_ext), int(cfg.gapbar)]
+
+
+def loop_mix(symbol: str) -> tuple[int, dict[str, int]]:
+    """Instruction mix of the largest loop (the span from a backward
+    branch's target to the branch) of the kernel whose mangled name
+    contains `symbol`, read from the SASS of the built library with the
+    toolkit's cuobjdump. Returns (instructions in the loop, {opcode:
+    count}); (0, {}) when no loop is found."""
+    so, _, _ = build()
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    bodies = [f for f in sass.split("Function : ")[1:]
+              if symbol in f.split("\n", 1)[0]]
+    if not bodies:
+        raise ValueError(f"no kernel matching {symbol!r} in {so.name}")
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", bodies[0])
+    addrs = [int(a, 16) for a, _ in ins]
+    lo = hi = 0
+    for n, (_, txt) in enumerate(ins):
+        m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", txt)
+        if m and int(m.group(1), 16) < addrs[n] \
+                and int(m.group(1), 16) in addrs:
+            start = addrs.index(int(m.group(1), 16))
+            if n + 1 - start > hi - lo:
+                lo, hi = start, n + 1
+    ops = [re.sub(r"^@!?U?P\w+\s+", "", t.strip()).split()[0].split(".")[0]
+           for _, t in ins[lo:hi]]
+    mix = Counter(o for o in ops if o != "NOP")
+    return sum(mix.values()), dict(mix.most_common())

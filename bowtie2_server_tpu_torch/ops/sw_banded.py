@@ -18,8 +18,12 @@ gap-extend, same argument as ops/sw.py).
 Three implementations of one function:
   - `banded_tile_torch`: the plain PyTorch version (a row loop of tensor
     ops, E by a Kogge-Stone max-scan);
-  - the CUDA kernel `ops/csrc/sw_banded.cu` (one thread per problem),
-    launched by `banded_dp` for tensors on a CUDA device;
+  - two CUDA kernels, launched by `banded_dp` for tensors on a CUDA device
+    at every band width in KERNEL_BANDS (all that `band_for` gives for
+    --dpad up to 255): the register kernel `ops/csrc/sw_banded.cu` (one
+    thread per problem) for K = 32, 64, 128, and the wide-band kernel
+    `ops/csrc/sw_banded_wide.cu` (one warp per problem) for K = 256, 512,
+    1024;
   - the numpy oracle `banded_fill_numpy` (and `banded_traceback`, the host
     traceback of the main path's rare gapped winners).
 `banded_dp` takes the plain version only for tensors on the CPU.
@@ -33,7 +37,10 @@ from . import kernels
 from .sw import NEG_INF, SwConfig, check_tile
 
 DEFAULT_BAND = 32
-KERNEL_BANDS = (32, 64, 128)   # band widths the CUDA kernel is built for
+# band widths the CUDA kernels are built for: the register kernel up to
+# REGISTER_BAND_MAX, the wide-band kernel above
+KERNEL_BANDS = (32, 64, 128, 256, 512, 1024)
+REGISTER_BAND_MAX = 128
 
 
 # ---------------------------------------------------------------- oracle ---
@@ -229,9 +236,11 @@ def banded_tile_torch(cfg: SwConfig, K: int, rd, mmpen, lens, band):
 
 def banded_dp(cfg: SwConfig, K: int, rd, mmpen, lens, band):
     """Banded DP on [rows, P] tiles (the layout of the reference's
-    `_banded_kernel`). On CUDA tensors this launches the CUDA kernel
-    (ops/csrc/sw_banded.cu); on CPU tensors it runs `banded_tile_torch`.
-    Returns (best, bi, bk) int32 [P]."""
+    `_banded_kernel`). On CUDA tensors this launches a CUDA kernel:
+    ops/csrc/sw_banded.cu for K <= REGISTER_BAND_MAX (counted as
+    `sw_banded`), ops/csrc/sw_banded_wide.cu above (`sw_banded_wide`); on
+    CPU tensors it runs `banded_tile_torch`. Returns (best, bi, bk) int32
+    [P]."""
     lq, p = rd.shape
     dev = check_tile("banded_dp", dict(rd=rd, mmpen=mmpen, lens=lens,
                                         band=band),
@@ -242,17 +251,21 @@ def banded_dp(cfg: SwConfig, K: int, rd, mmpen, lens, band):
     if dev.type != "cuda":
         raise ValueError(f"banded_dp: unsupported device {dev}")
     if K not in KERNEL_BANDS:
-        raise ValueError(f"banded_dp: band width {K} not in {KERNEL_BANDS}")
+        raise ValueError(
+            f"banded_dp: band width {K} not in {KERNEL_BANDS}: the CUDA "
+            f"kernels take bands up to {KERNEL_BANDS[-1]} (--dpad up to "
+            f"255)")
     best = torch.empty(p, dtype=torch.int32, device=dev)
     bi = torch.empty_like(best)
     bk = torch.empty_like(best)
+    name = "sw_banded" if K <= REGISTER_BAND_MAX else "sw_banded_wide"
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = kernels.lib().bt2_sw_banded(
+    rc = getattr(kernels.lib(), "bt2_" + name)(
         rd.data_ptr(), mmpen.data_ptr(), lens.data_ptr(), band.data_ptr(),
         best.data_ptr(), bi.data_ptr(), bk.data_ptr(), lq, p, K,
         *kernels.cfg_args(cfg), int(cfg.local), stream)
-    kernels.check(rc, "sw_banded")
-    kernels.LAUNCHES["sw_banded"] += 1
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
     return best, bi, bk
 
 

@@ -1,0 +1,169 @@
+"""DP microbench of the port: banded-DP cells/s on one card and their share
+of a measured int32 ALU ceiling. Port of the reference's scripts/bench_dp.py.
+
+    python -m bowtie2_server_tpu_torch.scripts.bench_dp [--P 32768]
+        [--L 100] [--K 32] [--local] [--device cuda]
+
+The last line of standard output is one JSON object: the reference bench's
+keys (`metric` = dp_banded_cells_per_s_per_chip, `value`, `unit`,
+`roofline_frac`), the measured ceiling `ceiling_ops_per_s`, and `card`, the
+`nvidia-smi --query-gpu=name,power.limit` line of the card it ran on.
+
+Timing: CUDA events around each of REPS back-to-back launches after a
+warm-up launch, median. (The reference bench chains its calls inside one
+jit to work around its TPU host link; the card needs no such trick.)
+
+Roofline model: `ops_per_cell` is the reference bench's count of the TPU
+kernel's int32 operations per cell, whose E scan is a Kogge-Stone scan of
+2*ceil(log2 K) operations. It is kept for `roofline_frac`, so the work
+counted is the same whatever implements it. The CUDA kernels replace the
+scan with a sequential chain; their own instructions per cell, read from
+the SASS of the built library (`kernels.loop_mix`), are printed beside it
+as `kernel_ops_per_cell`. The ceiling is measured by the probe
+(`ops/alu_probe.py`): [64, 32768] int32 through 3000 dependent steps of 4
+operations.
+
+With --device cpu the script runs the plain torch versions (for the tests);
+its numbers are then CPU numbers and its roofline share is not meaningful.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..ops import kernels
+from ..ops.alu_probe import OPS_PER_STEP, alu_chain
+from ..ops.sw import SwConfig
+from ..ops.sw_banded import REGISTER_BAND_MAX, banded_dp
+
+REPS = 10
+
+
+def ops_per_cell(K: int, local: bool) -> float:
+    """The reference bench's operations per DP cell (scripts/bench_dp.py
+    `ops_per_cell`)."""
+    return 14 + 2 * int(np.ceil(np.log2(K))) + (1 if local else 0)
+
+
+def card_line(device) -> str:
+    """`name, power.limit` of the card as nvidia-smi gives it; "cpu" for a
+    CPU run."""
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[device.index or 0]
+
+
+def time_ms(fn, device, reps: int = REPS) -> float:
+    """Median ms of fn() over `reps` back-to-back runs after one warm-up
+    run: CUDA events on the card, the host clock on the CPU."""
+    fn()
+    if device.type != "cuda":
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    torch.cuda.synchronize(device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    ev[0].record()
+    for e in ev[1:]:
+        fn()
+        e.record()
+    torch.cuda.synchronize(device)
+    return statistics.median(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
+
+
+def measure_alu_ceiling(device, P: int = 32768, rows: int = 64,
+                        nsteps: int = 3000, reps: int = 5):
+    """(int32 ops/s, ms a launch) of the probe over a [rows, P] tile,
+    counting OPS_PER_STEP operations a step and element."""
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 100, (rows, P)).astype(np.int32)).to(device)
+    ms = time_ms(lambda: alu_chain(x, nsteps), device, reps)
+    return OPS_PER_STEP * nsteps * rows * P / (ms / 1e3), ms
+
+
+def banded_inputs(P: int, L: int, K: int, device):
+    """The reference bench's inputs: random read and band codes, penalty 6,
+    every read L long."""
+    rng = np.random.default_rng(3)
+    rd = rng.integers(0, 4, (L, P)).astype(np.int32)
+    mm = np.full((L, P), 6, np.int32)
+    band = rng.integers(0, 4, (L + K, P)).astype(np.int32)
+    lens = np.full(P, L, np.int32)
+    return [torch.from_numpy(a).to(device) for a in (rd, mm, lens, band)]
+
+
+def kernel_ops_per_cell(K: int, local: bool) -> float:
+    """SASS instructions a thread issues per DP cell in the row loop of the
+    CUDA kernel that serves band K (the whole loop body, so the scored
+    row's arg-max counts in every row)."""
+    if K <= REGISTER_BAND_MAX:
+        n, _ = kernels.loop_mix(f"banded_kernelILi{K}ELb{int(local)}E")
+        return n / K
+    J = K // 32
+    n, _ = kernels.loop_mix(f"banded_wide_kernelILi{J}ELb{int(local)}E")
+    return n / J
+
+
+def run(device="cuda", P: int = 32768, L: int = 100, K: int = 32,
+        local: bool = False, ceiling=None) -> dict:
+    """Time the banded DP at [L, P] with band K; `ceiling` (ops/s) is
+    measured with the probe when not given. Returns the result dict."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: run with --device cpu for the "
+                           "plain versions")
+    cfg = SwConfig(ma=2, local=True) if local else SwConfig()
+    args = banded_inputs(P, L, K, device)
+    ms = time_ms(lambda: banded_dp(cfg, K, *args), device)
+    if ceiling is None:
+        ceiling, _ = (measure_alu_ceiling(device) if device.type == "cuda"
+                      else measure_alu_ceiling(device, P=256, rows=8,
+                                               nsteps=50, reps=3))
+    cps = P * L * K / (ms / 1e3)
+    opc = ops_per_cell(K, local)
+    out = {"metric": "dp_banded_cells_per_s_per_chip", "value": cps,
+           "unit": "cells/s", "roofline_frac": cps * opc / ceiling,
+           "ceiling_ops_per_s": ceiling, "card": card_line(device),
+           "P": P, "L": L, "K": K, "local": local, "kernel_ms": ms,
+           "ops_per_cell": opc}
+    if device.type == "cuda":
+        out["kernel_ops_per_cell"] = kernel_ops_per_cell(K, local)
+    else:
+        out["note"] = ("plain torch versions on the CPU: roofline_frac "
+                       "not meaningful")
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="bench_dp", description=__doc__,
+                                 formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--P", type=int, default=32768)
+    ap.add_argument("--L", type=int, default=100)
+    ap.add_argument("--K", type=int, default=32)
+    ap.add_argument("--local", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args(argv)
+    r = run(a.device, a.P, a.L, a.K, a.local)
+    print(f"# {r['card']}: {r['value'] / 1e9:.3f} Gcells/s "
+          f"({r['kernel_ms']:.4f} ms / {a.P * a.L * a.K / 1e6:.1f} Mcells), "
+          f"{r['roofline_frac']:.4f} of the measured ALU ceiling "
+          f"({r['ceiling_ops_per_s'] / 1e12:.3f} Tops/s; "
+          f"{r['ops_per_cell']} ops/cell)", file=sys.stderr)
+    print(json.dumps(r))
+
+
+if __name__ == "__main__":
+    main()

@@ -7,22 +7,40 @@ It imports nothing of JAX. Phases, in order; any failure exits non-zero and
 prints no result line:
   1. environment: torch and CUDA versions, the card's name and power limit;
      fails without a CUDA device;
-  2. build: nvcc builds the port's kernels from ops/csrc/;
+  2. build: nvcc builds the port's kernels from ops/csrc/ (registers and
+     spills of each);
   3. kernels: each CUDA kernel against its plain torch version on the same
-     CUDA tensors, at the main path's shapes (exact equality, tolerance 0:
-     all values are int32), with the median time of each;
+     CUDA tensors, at the shapes its path gives it (exact equality,
+     tolerance 0: all values are int32), with the median time of each: the
+     register banded kernel, the wide-band kernel (K = 256, 512), the
+     rectangle kernel and the ALU-ceiling probe;
+  DP. the DP microbench (scripts/bench_dp.py of the port) at its reference
+     shape and at the main path's banded shape: cells/s, the ALU ceiling
+     its probe measures, roofline_frac, the SASS instruction mix of the
+     probe's loop;
   4. the main path at full size: a 4 Mbp synthetic genome (a 3.6 Mbp
      chromosome plus 400 contigs of 1 kbp, the shape of a draft assembly,
      so the run-boundary rectangle DP runs in every batch) with the full
      k-mer seed table on the device; UnpairedAligner(device='cuda') over
      8 batches of 32768 reads of 100 bp (0-3 substitutions, half reverse
      complemented) at dispatch depth 4, as bench.py drives the reference
-     package; then one --local batch of 8192 reads. Launch counters are zeroed just before
-     and read just after; placement at the planted origin is checked;
-  5. CUDA against CPU: one batch of 2048 reads through the port on both
-     devices; the decoded batch results and SAM lines must be identical;
+     package; then one --local batch of 8192 reads. Launch counters are
+     zeroed just before and read just after; placement at the planted
+     origin is checked;
+  PE. the paired path at full width, the shape of bench_paired.py: a 12 Mbp
+     genome (8 chromosomes of 1.5 Mbp) with the full k-mer seed table on
+     the device; PairedAligner(device='cuda') over 150 bp FR pairs
+     (fragment N(350, 40) clipped to [300, 600], 0-3 substitutions per
+     mate, 2% of mates 2 with a substitution every 16 bases, so mate rescue
+     runs in every batch), one warm-up batch of 16384 pairs and 4 measured
+     at dispatch depth 2; both kernels must launch; placement of both mates
+     at their planted origin and strand is checked;
+  5. CUDA against CPU, each through the port on both devices with identical
+     output: one batch of 2048 reads (decoded batch results and SAM
+     lines); 512 pairs (SAM lines); one batch of 2048 reads at --dpad 32,
+     band K = 256, the path on which the wide-band kernel must launch;
   6. the entry point: `python -m bowtie2_server_tpu_torch align` on 10k reads
-     must write a well-formed SAM.
+     (-U) and on 5000 pairs (-1/-2) must write well-formed SAM.
 The line before the last is a JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -55,9 +73,25 @@ N_CONTIGS, CONTIG_LEN = 400, 1000
 # room for reads whose substitutions make another placement score as well.
 ORIGIN_MIN_E2E = 0.99
 ORIGIN_MIN_LOCAL = 0.99
+# the paired path (bench_paired.py's shape)
+PAIR_LEN = 150
+P_CHROMS, P_CHROM_LEN = 8, 1_500_000
+PAIR_BATCH = 16384
+PAIR_BATCHES = 4    # measured pair batches, after one warm-up batch
+PAIR_DEPTH = 2      # pair batches in flight (bench_paired.py's depth)
+SEEDLESS_FRAC = 0.02
+# Fraction of pairs with both mates at their planted origin and strand.
+# The port's own CPU run of this workload at small size (2 chromosomes of
+# 1.5 Mbp, 3 x 2048 pairs) placed all of them (1.0000, all concordant); the
+# limit leaves room for mates whose substitutions make another placement
+# score as well.
+PAIR_ORIGIN_MIN = 0.99
+WIDE_MAXHALF = 32   # --dpad whose band (K = 256) the wide-band kernel serves
 KERNEL_TPU_SOURCES = {
     "sw_banded": "bowtie2_server_tpu/ops/sw_banded.py:240",
+    "sw_banded_wide": "bowtie2_server_tpu/ops/sw_banded.py:240",
     "sw": "bowtie2_server_tpu/ops/sw.py:282",
+    "alu_probe": "scripts/bench_dp.py:48",
 }
 
 
@@ -117,6 +151,38 @@ def make_reads(seed: int, contigs, n: int):
     return names, seqs, quals, (cid, start, ~rc)
 
 
+def make_pairs(seed: int, chroms, n: int):
+    """bench_paired.py-shaped FR pairs: (names, mate-1 seqs, mate-2 seqs,
+    quals, origin) with origin = (chromosome, mate-1 start, mate-2 start);
+    mate 1 lies on the forward strand, mate 2 on the reverse."""
+    rng = np.random.default_rng(seed)
+    gall = np.stack(chroms)
+    ci = rng.integers(0, len(chroms), n)
+    frag = np.clip(rng.normal(350, 40, n), 300, 600).astype(np.int64)
+    st = (rng.random(n) * (gall.shape[1] - frag)).astype(np.int64)
+    st2 = st + frag - PAIR_LEN
+    offs = np.arange(PAIR_LEN)
+    m1 = gall[ci[:, None], st[:, None] + offs]
+    m2 = 3 - gall[ci[:, None], st2[:, None] + offs][:, ::-1]
+    for m in (m1, m2):                  # 0-3 substitutions per mate
+        nmut = rng.integers(0, 4, n)
+        for k in range(3):
+            sel = nmut > k
+            pos = rng.integers(0, PAIR_LEN, n)
+            m[sel, pos[sel]] = rng.integers(0, 4, n).astype(np.uint8)[sel]
+    # seedless mates 2: a substitution every 16 bases, so no 22-mer seed
+    # survives and only mate rescue finds them
+    seedless = np.nonzero(rng.random(n) < SEEDLESS_FRAC)[0]
+    for r in seedless:
+        at = np.arange(int(rng.integers(0, 16)), PAIR_LEN, 16)
+        m2[r, at] = (m2[r, at] + rng.integers(1, 4, len(at))) % 4
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    names = [f"p{i}" for i in range(n)]
+    s1 = [row.tobytes() for row in bases[m1]]
+    s2 = [row.tobytes() for row in bases[m2]]
+    return names, s1, s2, [b"I" * PAIR_LEN] * n, (ci, st, st2)
+
+
 def placements(recs):
     """(aligned, ref_id, pos, fw) arrays of a batch's records, read from
     the column store where the fast path left them."""
@@ -136,6 +202,17 @@ def placements(recs):
     for i, r in items:
         aligned[i], rid[i], pos[i], fw[i] = r.aligned, r.ref_id, r.pos, r.fw
     return aligned, rid, pos, fw
+
+
+def pair_origin_fraction(pairs, origin) -> float:
+    """Fraction of pairs with both mates at their planted origin and
+    strand."""
+    ci, st1, st2 = origin
+    a1, rid1, pos1, fw1 = placements(pairs.r1)
+    a2, rid2, pos2, fw2 = placements(pairs.r2)
+    ok = (a1 & a2 & (rid1 == ci) & (rid2 == ci) & fw1 & ~fw2
+          & (pos1 == st1) & (pos2 == st2))
+    return float(ok.mean())
 
 
 def origin_fraction(recs, origin, local: bool) -> float:
@@ -189,6 +266,28 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def hold(label: str, arg, kernel, plain):
+    """kernel(arg) against plain(arg), both returning tuples of int32 CUDA
+    tensors (or one tensor): logs and returns (max_abs_err, kernel ms,
+    plain ms)."""
+    import torch
+    got, want = kernel(arg), plain(arg)
+    torch.cuda.synchronize()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    ms = cuda_ms(lambda: kernel(arg))
+    pms = cuda_ms(lambda: plain(arg), reps=3)
+    log(f"{label} max_abs_err={err} kernel {ms:.3f} ms, plain {pms:.3f} ms")
+    return err, ms, pms
+
+
+def summary(runs):
+    """The largest error of `runs` and the times of the first."""
+    return dict(max_abs_err=max(r[0] for r in runs), ms=runs[0][1],
+                plain_ms=runs[0][2])
+
+
 def banded_problems(contigs, seed: int, P: int, K: int, lq: int):
     """[rows, P] int32 inputs at the fused stage's shapes: half the bands
     cut from the genome around planted reads (as the band gather does),
@@ -213,29 +312,34 @@ def phase_kernels(contigs):
     """Each kernel against its plain torch version on the same CUDA
     tensors. Returns per-kernel {max_abs_err, ms, plain_ms}."""
     import torch
+    from bowtie2_server_tpu_torch.ops import alu_probe
     from bowtie2_server_tpu_torch.ops import sw as tsw
     from bowtie2_server_tpu_torch.ops import sw_banded as tsb
     dev = torch.device("cuda")
+    modes = [("e2e", tsw.SwConfig()),
+             ("local", tsw.SwConfig(ma=2, local=True))]
     out = {}
     K, lq, P = 64, 128, 33792           # the fused stage's main-path shape
     args = [torch.from_numpy(a).to(dev)
             for a in banded_problems(contigs, 5, P, K, lq)]
-    errs, times = [], {}
-    for local in (False, True):
-        cfg = tsw.SwConfig(ma=2, local=True) if local else tsw.SwConfig()
-        got = tsb.banded_dp(cfg, K, *args)
-        want = tsb.banded_tile_torch(cfg, K, *args)
-        torch.cuda.synchronize()
-        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-        ms = cuda_ms(lambda: tsb.banded_dp(cfg, K, *args))
-        pms = cuda_ms(lambda: tsb.banded_tile_torch(cfg, K, *args), reps=3)
-        mode = "local" if local else "e2e"
-        log(f"sw_banded {mode}: Lq={lq} K={K} P={P} max_abs_err={err} "
-            f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
-        errs.append(err)
-        times[mode] = (ms, pms)
-    out["sw_banded"] = dict(max_abs_err=max(errs), ms=times["e2e"][0],
-                            plain_ms=times["e2e"][1])
+    runs = [hold(f"sw_banded {mode}: Lq={lq} K={K} P={P}", cfg,
+                 lambda c: tsb.banded_dp(c, K, *args),
+                 lambda c: tsb.banded_tile_torch(c, K, *args))
+            for mode, cfg in modes]
+    out["sw_banded"] = summary(runs)
+
+    # the wide-band kernel at the bands of --dpad 32..127 (Lq of 100 bp
+    # reads, rows padded to 128)
+    lq, P = 128, 4096
+    runs = []
+    for K in (256, 512):     # the first run, K = 256 e2e, is the one reported
+        args = [torch.from_numpy(a).to(dev)
+                for a in banded_problems(contigs, 7, P, K, lq)]
+        runs += [hold(f"sw_banded_wide {mode}: Lq={lq} K={K} P={P}", cfg,
+                      lambda c: tsb.banded_dp(c, K, *args),
+                      lambda c: tsb.banded_tile_torch(c, K, *args))
+                 for mode, cfg in modes]
+    out["sw_banded_wide"] = summary(runs)
 
     lq_pad, lc, P = 128, 256, 4096
     rng = np.random.default_rng(6)
@@ -251,22 +355,20 @@ def phase_kernels(contigs):
     mm = rng.integers(2, 7, (lq_pad, P)).astype(np.int32)
     args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
             for a in (rd, mm, lens, ref, reflens)]
-    errs, times = [], {}
-    for local in (False, True):
-        cfg = tsw.SwConfig(ma=2, local=True) if local else tsw.SwConfig()
-        got = tsw.sw_tile(cfg, *args)
-        want = tsw.sw_tile_torch(cfg, *args)
-        torch.cuda.synchronize()
-        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-        ms = cuda_ms(lambda: tsw.sw_tile(cfg, *args))
-        pms = cuda_ms(lambda: tsw.sw_tile_torch(cfg, *args), reps=3)
-        mode = "local" if local else "e2e"
-        log(f"sw (rect) {mode}: Lq_pad={lq_pad} Lc={lc} P={P} "
-            f"max_abs_err={err} kernel {ms:.3f} ms, plain {pms:.3f} ms")
-        errs.append(err)
-        times[mode] = (ms, pms)
-    out["sw"] = dict(max_abs_err=max(errs), ms=times["e2e"][0],
-                     plain_ms=times["e2e"][1])
+    runs = [hold(f"sw (rect) {mode}: Lq_pad={lq_pad} Lc={lc} P={P}", cfg,
+                 lambda c: tsw.sw_tile(c, *args),
+                 lambda c: tsw.sw_tile_torch(c, *args))
+            for mode, cfg in modes]
+    out["sw"] = summary(runs)
+
+    # the ALU-ceiling probe at the DP microbench's shape
+    rows, P, nsteps = 64, 32768, 3000
+    x = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 100, (rows, P)).astype(np.int32)).to(dev)
+    out["alu_probe"] = summary([hold(
+        f"alu_probe: [{rows}, {P}] nsteps={nsteps}", nsteps,
+        lambda n: alu_probe.alu_chain(x, n),
+        lambda n: alu_probe.alu_chain_torch(x, n))])
     for name, r in out.items():
         if r["max_abs_err"] != 0:
             raise RuntimeError(f"{name}: kernel disagrees with its plain "
@@ -339,8 +441,8 @@ def phase_main(idx, contigs):
         f"kernel launches {launches}")
     if frac < ORIGIN_MIN_E2E:
         raise RuntimeError(f"origin fraction {frac:.4f} < {ORIGIN_MIN_E2E}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("sw_banded", "sw"):
+        if launches[name] == 0:
             raise RuntimeError(f"the main path never launched {name}")
     l_rps, l_aligned, l_frac = run_local_batch(idx, contigs, "cuda",
                                                LOCAL_BATCH)
@@ -351,6 +453,89 @@ def phase_main(idx, contigs):
     if l_frac < ORIGIN_MIN_LOCAL:
         raise RuntimeError(f"local origin fraction {l_frac:.4f} < "
                            f"{ORIGIN_MIN_LOCAL}")
+    return launches
+
+
+def phase_dp_bench():
+    """The DP microbench through its module, at the reference bench's shape
+    and at the main path's banded shape. Its path is the probe's: the
+    counters are zeroed before and read after."""
+    from bowtie2_server_tpu_torch.ops import kernels
+    from bowtie2_server_tpu_torch.scripts import bench_dp
+    kernels.reset_launches()
+    ref = bench_dp.run("cuda", P=32768, L=100, K=32)
+    main = bench_dp.run("cuda", P=33792, L=128, K=64,
+                        ceiling=ref["ceiling_ops_per_s"])
+    launches = dict(kernels.LAUNCHES)
+    for r in (ref, main):
+        log(f"DP microbench P={r['P']} L={r['L']} K={r['K']}: "
+            f"{r['value']:.4e} cells/s ({r['kernel_ms']:.4f} ms), ceiling "
+            f"{r['ceiling_ops_per_s']:.4e} int32 ops/s, roofline_frac "
+            f"{r['roofline_frac']:.4f} at {r['ops_per_cell']} ops/cell; the "
+            f"kernel's own loop: {r['kernel_ops_per_cell']:.2f} "
+            f"instructions/cell")
+        log("  " + json.dumps(r))
+    n, mix = kernels.loop_mix("alu_kernel")
+    log(f"ALU probe loop (SASS): {n} instructions {mix}")
+    for name in ("alu_probe", "sw_banded"):
+        if launches[name] == 0:
+            raise RuntimeError(f"the DP microbench never launched {name}")
+    return launches
+
+
+def run_paired_path(idx, chroms, device, batch, n_batches, seed=21):
+    """bench_paired.py's loop on the port: one warm-up pair batch, then
+    n_batches at dispatch depth PAIR_DEPTH. Returns (pairs/s, concordant
+    fraction, origin fraction, warm-up seconds)."""
+    import torch
+    from bowtie2_server_tpu_torch.align.paired import PairedAligner
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    names, s1, s2, quals, origin = make_pairs(seed, chroms,
+                                              batch * (n_batches + 1))
+    b1s, b2s = ([make_batch(names[i : i + batch], s[i : i + batch],
+                            quals[i : i + batch])
+                 for i in range(0, len(names), batch)] for s in (s1, s2))
+    pal = PairedAligner(idx, device=device)
+    t0 = time.time()
+    outs = [pal.align_batch(b1s[0], b2s[0])]
+    warm = time.time() - t0
+    t0 = time.time()
+    inflight = deque()
+    for b1, b2 in zip(b1s[1:], b2s[1:]):
+        inflight.append(pal.align_async(b1, b2))
+        if len(inflight) >= PAIR_DEPTH:
+            outs.append(pal.align_wait(inflight.popleft()))
+    while inflight:
+        outs.append(pal.align_wait(inflight.popleft()))
+    if pal.up.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    n = batch * n_batches
+    conc = sum(p.n_concordant() for p in outs[1:]) / n
+    frac = np.mean([pair_origin_fraction(p, tuple(
+        o[i * batch : (i + 1) * batch] for o in origin))
+        for i, p in enumerate(outs)])
+    return n / dt, conc, float(frac), warm
+
+
+def phase_paired(pidx, chroms):
+    import torch
+    from bowtie2_server_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    pps, conc, frac, warm = run_paired_path(pidx, chroms, "cuda",
+                                            PAIR_BATCH, PAIR_BATCHES)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"paired path (e2e): {pps:.1f} pairs/s over {PAIR_BATCHES} batches "
+        f"of {PAIR_BATCH} pairs at depth {PAIR_DEPTH} (warm-up batch "
+        f"{warm:.2f} s); concordant {conc:.4f}; both mates at planted "
+        f"origin and strand {frac:.4f}; kernel launches {launches}")
+    if frac < PAIR_ORIGIN_MIN:
+        raise RuntimeError(f"pair origin fraction {frac:.4f} < "
+                           f"{PAIR_ORIGIN_MIN}")
+    for name in ("sw_banded", "sw"):
+        if launches[name] == 0:
+            raise RuntimeError(f"the paired path never launched {name}")
     return launches
 
 
@@ -380,43 +565,132 @@ def phase_parity(idx, contigs, n=2048):
         f"identical")
 
 
+def phase_parity_paired(pidx, chroms, n=512):
+    from bowtie2_server_tpu_torch.align.paired import PairedAligner
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.io.sam import sam_record
+    names, s1, s2, quals, _ = make_pairs(23, chroms, n)
+    sams = {}
+    for dev in ("cuda", "cpu"):
+        pal = PairedAligner(pidx, device=dev)
+        pairs = pal.align_batch(make_batch(names, s1, quals),
+                                make_batch(names, s2, quals))
+        sams[dev] = [sam_record(r, pidx.ref_names)
+                     for pr in pairs for r in pr]
+    diff = sum(a != b for a, b in zip(sams["cuda"], sams["cpu"]))
+    if diff or len(sams["cuda"]) != 2 * n:
+        raise RuntimeError(f"{diff} paired SAM lines differ between CUDA "
+                           f"and CPU")
+    log(f"CUDA vs CPU: {n} pairs, SAM lines identical")
+
+
+def phase_parity_wide(idx, contigs, n=2048):
+    """One batch at --dpad WIDE_MAXHALF (band K = 256) on both devices: the
+    path of the wide-band kernel. Returns its launch counts."""
+    import torch
+    from bowtie2_server_tpu_torch.align.pipeline import (SearchPolicy,
+                                                         UnpairedAligner)
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.io.sam import sam_record
+    from bowtie2_server_tpu_torch.ops import kernels
+    names, seqs, quals, _ = make_reads(15, contigs, n)
+    pol = SearchPolicy(maxhalf=WIDE_MAXHALF)
+    sams = {}
+    for dev in ("cuda", "cpu"):
+        al = UnpairedAligner(idx, policy=pol, device=dev)
+        if dev == "cuda":
+            kernels.reset_launches()
+        recs = al.align_batch(make_batch(names, seqs, quals))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        sams[dev] = [sam_record(recs[i], idx.ref_names) for i in range(n)]
+    diff = sum(a != b for a, b in zip(sams["cuda"], sams["cpu"]))
+    if diff:
+        raise RuntimeError(f"{diff} SAM lines differ between CUDA and CPU "
+                           f"at --dpad {WIDE_MAXHALF}")
+    log(f"CUDA vs CPU at --dpad {WIDE_MAXHALF} (band {al.band}): {n} reads, "
+        f"SAM lines identical; kernel launches {launches}")
+    if launches["sw_banded_wide"] == 0:
+        raise RuntimeError("the --dpad 32 path never launched "
+                           "sw_banded_wide")
+    return launches
+
+
 _CIGAR = re.compile(r"^(\*|(\d+[MIDNSHP=X])+)$")
 
 
-def phase_cli(base: Path, contigs, n=10_000, device="cuda"):
-    names, seqs, quals, _ = make_reads(14, contigs, n)
-    fq = WORK / "reads.fq"
-    sam = WORK / "out.sam"
-    with open(fq, "w") as f:
+def write_fastq(path: Path, names, seqs, quals):
+    with open(path, "w") as f:
         for nm, s, q in zip(names, seqs, quals):
             f.write(f"@{nm}\n{s.decode()}\n+\n{q.decode()}\n")
+
+
+def run_cli(args, n_refs: int, n_recs: int, read_len: int, device: str):
+    """`python -m bowtie2_server_tpu_torch align <args>` into a SAM file,
+    which must be well-formed: a header with n_refs @SQ lines and n_recs
+    records of read_len bases. Returns (records as field lists, the
+    summary's "overall alignment rate" line, seconds)."""
+    sam = WORK / "out.sam"
     t0 = time.time()
     r = subprocess.run(
-        [sys.executable, "-m", "bowtie2_server_tpu_torch", "align", "-x",
-         str(base), "-U", str(fq), "-S", str(sam), "--device", device],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
+        [sys.executable, "-m", "bowtie2_server_tpu_torch", "align", *args,
+         "-S", str(sam), "--device", device], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
     if r.returncode != 0:
         raise RuntimeError(f"CLI failed ({r.returncode}):\n{r.stderr}")
     lines = sam.read_text().splitlines()
     head = [ln for ln in lines if ln.startswith("@")]
     recs = [ln.split("\t") for ln in lines if not ln.startswith("@")]
     if not head or not head[0].startswith("@HD") or \
-            sum(h.startswith("@SQ") for h in head) != len(contigs):
+            sum(h.startswith("@SQ") for h in head) != n_refs:
         raise RuntimeError("SAM header malformed")
-    if len(recs) != n:
-        raise RuntimeError(f"SAM has {len(recs)} records, expected {n}")
-    n_al = 0
+    if len(recs) != n_recs:
+        raise RuntimeError(f"SAM has {len(recs)} records, expected {n_recs}")
     for f in recs:
         if len(f) < 11 or not f[1].isdigit() or not f[3].isdigit() \
-                or not _CIGAR.match(f[5]) or len(f[9]) != READ_LEN:
+                or not _CIGAR.match(f[5]) or len(f[9]) != read_len \
+                or not f[8].lstrip("-").isdigit():
             raise RuntimeError(f"malformed SAM record: {f[:11]}")
-        n_al += not int(f[1]) & 4
-    if n_al < 0.95 * n:
-        raise RuntimeError(f"only {n_al}/{n} CLI records aligned")
     summ = [ln for ln in r.stderr.splitlines()
             if "overall alignment rate" in ln]
-    log(f"CLI: {n} reads -> well-formed SAM in {time.time() - t0:.1f} s "
-        f"(process included); {n_al} aligned; {summ[0] if summ else ''}")
+    return recs, summ[0] if summ else "", time.time() - t0
+
+
+def phase_cli(base: Path, contigs, n=10_000, device="cuda"):
+    names, seqs, quals, _ = make_reads(14, contigs, n)
+    fq = WORK / "reads.fq"
+    write_fastq(fq, names, seqs, quals)
+    recs, summ, sec = run_cli(["-x", str(base), "-U", str(fq)], len(contigs),
+                              n, READ_LEN, device)
+    n_al = sum(not int(f[1]) & 4 for f in recs)
+    if n_al < 0.95 * n:
+        raise RuntimeError(f"only {n_al}/{n} CLI records aligned")
+    log(f"CLI: {n} reads -> well-formed SAM in {sec:.1f} s (process "
+        f"included); {n_al} aligned; {summ}")
+
+
+def phase_cli_paired(pbase: Path, chroms, n=5000, device="cuda"):
+    names, s1, s2, quals, _ = make_pairs(24, chroms, n)
+    fqs = [WORK / "p1.fq", WORK / "p2.fq"]
+    for fq, seqs in zip(fqs, (s1, s2)):
+        write_fastq(fq, names, seqs, quals)
+    recs, summ, sec = run_cli(
+        ["-x", str(pbase), "-1", str(fqs[0]), "-2", str(fqs[1])],
+        len(chroms), 2 * n, PAIR_LEN, device)
+    n_al = n_proper = 0
+    for k, f in enumerate(recs):
+        flag = int(f[1])
+        mate = 0x40 if k % 2 == 0 else 0x80
+        if not flag & 1 or not flag & mate or f[0] != names[k // 2]:
+            raise RuntimeError(f"SAM record {k} out of pair order: {f[:2]}")
+        n_al += not flag & 4
+        n_proper += bool(flag & 2)
+    if n_al < 0.95 * 2 * n:
+        raise RuntimeError(f"only {n_al}/{2 * n} paired CLI records aligned")
+    log(f"paired CLI: {n} pairs -> well-formed SAM of {2 * n} records in "
+        f"{sec:.1f} s (process included); {n_al} aligned, {n_proper} in "
+        f"proper pairs; {summ}")
 
 
 def main():
@@ -434,15 +708,35 @@ def main():
     idx = FmIndex.load(base)      # sets the k-mer table's disk cache base
     log(f"genome {idx.n} bp in {len(contigs)} sequences, index built in "
         f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    pfa, chroms = make_genome(43, P_CHROM_LEN, P_CHROMS - 1, P_CHROM_LEN)
+    pbase = WORK / "pgenome"
+    build_index(pfa).save(pbase)
+    pidx = FmIndex.load(pbase)
+    log(f"paired genome {pidx.n} bp in {len(chroms)} chromosomes, index "
+        f"built in {time.time() - t0:.1f} s")
     times = phase_kernels(contigs)
+    dp_launches = phase_dp_bench()
     launches = phase_main(idx, contigs)
+    pe_launches = phase_paired(pidx, chroms)
     phase_parity(idx, contigs)
+    phase_parity_paired(pidx, chroms)
+    wide_launches = phase_parity_wide(idx, contigs)
     phase_cli(base, contigs)
+    phase_cli_paired(pbase, chroms)
+    # each kernel's launches on its path: the unpaired main path for the
+    # banded and rectangle kernels (the paired path is checked above), the
+    # --dpad 32 batch for the wide-band kernel, the DP microbench for the
+    # probe
+    path_launches = dict(sw_banded=launches["sw_banded"], sw=launches["sw"],
+                         sw_banded_wide=wide_launches["sw_banded_wide"],
+                         alu_probe=dp_launches["alu_probe"])
+    log(f"launches on the paired path: {pe_launches}")
     kern = [dict(name=name, route="cuda",
                  source=f"bowtie2_server_tpu_torch/ops/csrc/{name}.cu",
                  replaces=KERNEL_TPU_SOURCES[name],
-                 launches=launches[name], **times[name])
-            for name in ("sw_banded", "sw")]
+                 launches=path_launches[name], **times[name])
+            for name in ("sw_banded", "sw_banded_wide", "sw", "alu_probe")]
     log(f"all phases passed in {time.time() - t_all:.1f} s")
     log(card_line() or card)
     log(json.dumps({"kernels": kern}))

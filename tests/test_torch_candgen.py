@@ -6,6 +6,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the test workers share the cores: one intra-op thread each, so that
+# torch's thread pools do not contend with each other and with XLA's
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel equals its plain torch version on
-the same CUDA tensors, and UnpairedAligner on 'cuda' writes the same SAM as
-on 'cpu'. Every test here needs a CUDA device and skips without one; none
-imports JAX, so on a machine with the card (and no JAX) run them with
+the same CUDA tensors, and UnpairedAligner and PairedAligner on 'cuda'
+write the same SAM as on 'cpu'. Every test here needs a CUDA device and
+skips without one; none imports JAX, so on a machine with the card (and no
+JAX) run them with
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 import numpy as np
@@ -9,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from bowtie2_server_tpu_torch.ops import kernels  # noqa: E402
+from bowtie2_server_tpu_torch.ops import alu_probe, kernels  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw as tsw  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw_banded as tsb  # noqa: E402
 from torch_tiles import CFGS, RECT_CFGS, banded_tile, rect_tile  # noqa: E402
@@ -22,16 +23,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("K", [32, 64, 128])
+@pytest.mark.parametrize("K", tsb.KERNEL_BANDS)
 @pytest.mark.parametrize("name", list(CFGS))
 def test_banded_kernel_equals_plain(name, K, cuda_device):
+    """The register kernel (K <= 128) and the wide-band kernel (above)."""
     args = [torch.from_numpy(a).to(cuda_device)
             for a in banded_tile(3 * K, 100, K)]
     cfg = tsw.SwConfig(**CFGS[name])
-    n0 = kernels.LAUNCHES["sw_banded"]
+    which = "sw_banded" if K <= tsb.REGISTER_BAND_MAX else "sw_banded_wide"
+    n0 = kernels.LAUNCHES[which]
     got = tsb.banded_dp(cfg, K, *args)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["sw_banded"] == n0 + 1
+    assert kernels.LAUNCHES[which] == n0 + 1
     want = tsb.banded_tile_torch(cfg, K, *args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -53,9 +56,19 @@ def test_sw_kernel_equals_plain(name, cuda_device):
 
 def test_banded_kernel_refuses_unbuilt_band(cuda_device):
     args = [torch.from_numpy(a).to(cuda_device)
-            for a in banded_tile(1, 20, 256)]
-    with pytest.raises(ValueError, match="band width 256"):
-        tsb.banded_dp(tsw.SwConfig(), 256, *args)
+            for a in banded_tile(1, 20, 2048)]
+    with pytest.raises(ValueError, match="band width 2048"):
+        tsb.banded_dp(tsw.SwConfig(), 2048, *args)
+
+
+def test_alu_probe_equals_plain(cuda_device):
+    x = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 100, (64, 4096)).astype(np.int32)).to(cuda_device)
+    n0 = kernels.LAUNCHES["alu_probe"]
+    got = alu_probe.alu_chain(x, 100)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["alu_probe"] == n0 + 1
+    assert torch.equal(got, alu_probe.alu_chain_torch(x, 100))
 
 
 def _workload(seed=3, n=3000):
@@ -109,3 +122,38 @@ def test_aligner_cuda_equals_cpu(local, cuda_device):
     assert kernels.LAUNCHES["sw_banded"] >= 1
     if not local:
         assert kernels.LAUNCHES["sw"] >= 1
+
+
+def test_paired_cuda_equals_cpu(cuda_device):
+    """Pairs of the workload's reads (mate 2 reverse-complemented 200-400
+    bases downstream of mate 1 on the 60 kbp chromosome; every 10th mate 2
+    with a substitution every 16 bases, so mate rescue runs)."""
+    from bowtie2_server_tpu_torch.align.paired import PairedAligner
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.io.sam import sam_record
+    from bowtie2_server_tpu_torch.utils import dna
+    idx, _, _, _ = _workload(n=1)
+    rng = np.random.default_rng(4)
+    chrom = idx.joined[: idx.ref_lens[0]]
+    s1, s2 = [], []
+    for p in range(500):
+        st = int(rng.integers(0, len(chrom) - 500))
+        end = st + int(rng.integers(200, 400))
+        m1 = chrom[st : st + 100].copy()
+        m2 = (3 - chrom[end - 100 : end])[::-1].copy()
+        if p % 10 == 0:
+            m2[np.arange(p % 16, 100, 16)] ^= 1
+        s1.append(dna.decode(m1).encode())
+        s2.append(dna.decode(m2).encode())
+    names = [f"p{i}" for i in range(500)]
+    quals = [b"I" * 100] * 500
+    sams = {}
+    for dev in ("cpu", cuda_device):
+        kernels.reset_launches()
+        pal = PairedAligner(idx, device=dev)
+        pairs = pal.align_batch(make_batch(names, s1, quals),
+                                make_batch(names, s2, quals))
+        sams[str(dev)] = [sam_record(r, idx.ref_names)
+                          for pr in pairs for r in pr]
+    assert sams["cuda"] == sams["cpu"]
+    assert kernels.LAUNCHES["sw_banded"] >= 2 and kernels.LAUNCHES["sw"] >= 1

@@ -1,11 +1,15 @@
 """The slice as a whole: the port's UnpairedAligner (device 'cpu', the
 plain torch versions of the kernels) writes SAM byte-identical to the JAX
-package's UnpairedAligner, end-to-end and --local, and the port's CLI
-writes the same SAM and summary as the JAX CLI."""
+package's UnpairedAligner, end-to-end and --local, and at a --dpad whose
+band only the wide-band kernel serves on the card; the port's CLI writes
+the same SAM and summary as the JAX CLI."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the test workers share the cores: one intra-op thread each, so that
+# torch's thread pools do not contend with each other and with XLA's
+torch.set_num_threads(1)
 
 from bowtie2_server_tpu.align.pipeline import (  # noqa: E402
     SearchPolicy as JPolicy, UnpairedAligner as JAligner)
@@ -18,6 +22,7 @@ from bowtie2_server_tpu_torch.align import pipeline as tpipe  # noqa: E402
 from bowtie2_server_tpu_torch.index.fm import FmIndex  # noqa: E402
 from bowtie2_server_tpu_torch.io.fastq import make_batch  # noqa: E402
 from bowtie2_server_tpu_torch.io.sam import sam_record  # noqa: E402
+from bowtie2_server_tpu_torch.ops.sw_banded import KERNEL_BANDS  # noqa: E402
 from bowtie2_server_tpu_torch.utils.presets import (  # noqa: E402
     preset_params as t_preset_params)
 
@@ -98,6 +103,36 @@ def test_aligner_sam_identical(workloads, which, local, monkeypatch):
     if which == "contigs":
         # the rectangle DP ran through the device path, not numpy
         assert rect_jobs and max(rect_jobs) > 128
+
+
+def test_band_for_lies_in_kernel_bands():
+    """Every band width the policy gives for --dpad up to 255 is one the
+    CUDA kernels are built for."""
+    got = {tpipe.band_for(m) for m in range(256)}
+    assert got <= set(KERNEL_BANDS)
+    assert {256, 512, 1024} <= got
+    assert tpipe.band_for(31) == 128 and tpipe.band_for(32) == 256
+
+
+def test_wide_band_sam_identical(workloads):
+    """--dpad 32 (band K = 256): the same SAM as the JAX package on 300
+    reads of the 200 kbp genome."""
+    jidx, tidx, (names, seqs, quals) = workloads["genome"]
+    names, seqs, quals = names[:300], seqs[:300], quals[:300]
+    sc, pol = preset_params(None, False)
+    pol = dict(pol, maxhalf=32)
+    jrecs = JAligner(jidx, scoring=sc, policy=JPolicy(**pol)).align_batch(
+        j_make_batch(names, seqs, quals))
+    want = [j_sam(jrecs[i], jidx.ref_names) for i in range(len(names))]
+    tsc, tpol = t_preset_params(None, False)
+    tal = tpipe.UnpairedAligner(tidx, scoring=tsc,
+                                policy=tpipe.SearchPolicy(**dict(
+                                    tpol, maxhalf=32)), device="cpu")
+    assert tal.band == 256
+    trecs = tal.align_batch(make_batch(names, seqs, quals))
+    got = [sam_record(trecs[i], tidx.ref_names) for i in range(len(names))]
+    assert got == want
+    assert sum(r.aligned for r in trecs) > 0.95 * len(names)
 
 
 @pytest.mark.parametrize("mode", ["--end-to-end", "--local"])
