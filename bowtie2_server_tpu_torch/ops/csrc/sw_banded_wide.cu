@@ -1,5 +1,7 @@
 // Banded affine-gap DP for wide bands (K = 256, 512, 1024), one warp per
-// problem.
+// problem. It also takes K = 128, which the wrapper routes to the register
+// kernel; that width is built so that the two kernels can be timed side by
+// side at the band where the register kernel spills.
 //
 // Replaces, for the band widths that band_for gives at --dpad 32..255, the
 // TPU kernel bowtie2_server_tpu/ops/sw_banded.py::_banded_kernel (launched
@@ -210,7 +212,7 @@ void launch(bool local, dim3 grid, dim3 block, cudaStream_t st,
 }  // namespace
 
 // rd, mm: [lq, P]; lens: [P]; band: [lq + K, P]; best, bi, bk: [P] (int32,
-// contiguous, on the device); K in {256, 512, 1024}. Returns
+// contiguous, on the device); K in {128, 256, 512, 1024}. Returns
 // cudaGetLastError() after the launch.
 extern "C" int bt2_sw_banded_wide(const int32_t* rd, const int32_t* mm,
                                   const int32_t* lens, const int32_t* band,
@@ -225,6 +227,10 @@ extern "C" int bt2_sw_banded_wide(const int32_t* rd, const int32_t* mm,
   const dim3 grid((P + 3) / 4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (K) {
+    case 128:
+      launch<4>(local, grid, block, st, rd, mm, lens, band, best, bi, bk, lq,
+                P, c);
+      break;
     case 256:
       launch<8>(local, grid, block, st, rd, mm, lens, band, best, bi, bk, lq,
                 P, c);

@@ -128,7 +128,9 @@ def loop_mix(symbol: str) -> tuple[int, dict[str, int]]:
     """Instruction mix of the largest loop (the span from a backward
     branch's target to the branch) of the kernel whose mangled name
     contains `symbol`, read from the SASS of the built library with the
-    toolkit's cuobjdump. Returns (instructions in the loop, {opcode:
+    toolkit's cuobjdump. Loops holding ENDCOLLECTIVE are skipped: they are
+    the compiler's fallback for warp shuffles it cannot prove converged,
+    not the kernel's own loop. Returns (instructions in the loop, {opcode:
     count}); (0, {}) when no loop is found."""
     so, _, _ = build()
     tool = Path(_nvcc()).with_name("cuobjdump")
@@ -146,7 +148,8 @@ def loop_mix(symbol: str) -> tuple[int, dict[str, int]]:
         if m and int(m.group(1), 16) < addrs[n] \
                 and int(m.group(1), 16) in addrs:
             start = addrs.index(int(m.group(1), 16))
-            if n + 1 - start > hi - lo:
+            collective = any("ENDCOLLECTIVE" in t for _, t in ins[start : n])
+            if n + 1 - start > hi - lo and not collective:
                 lo, hi = start, n + 1
     ops = [re.sub(r"^@!?U?P\w+\s+", "", t.strip()).split()[0].split(".")[0]
            for _, t in ins[lo:hi]]

@@ -19,8 +19,9 @@ Scoring semantics mirror the reference (ref: scoring.h):
 
 Three implementations of one function:
   - `sw_tile_torch`: the plain PyTorch version (column loop of tensor ops);
-  - the CUDA kernel `ops/csrc/sw.cu` (one thread per problem), launched by
-    `sw_tile` for tensors on a CUDA device;
+  - the CUDA kernel `ops/csrc/sw.cu` (one warp per problem, the read rows
+    spread over its lanes and walked as a wavefront), launched by `sw_tile`
+    for tensors on a CUDA device;
   - the numpy oracles `sw_score_numpy` / `sw_align_numpy_batch`.
 `sw_tile` takes the plain version only for tensors on the CPU.
 """
@@ -295,8 +296,8 @@ def sw_tile(cfg: SwConfig, rd, mmpen, lens, ref, reflens):
     return best, bi, bj
 
 
-def sw_align_batch(rd, lens, mmpen, ref, reflens, cfg: SwConfig,
-                   device="cpu"):
+def sw_align_batch(rd, lens, mmpen, ref, reflens, cfg: SwConfig, *,
+                   device):
     """Batched best-score alignment (host arrays in and out).
 
     rd:      [B, Lq] uint8 read codes (pad with 5)

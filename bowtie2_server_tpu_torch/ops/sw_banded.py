@@ -23,7 +23,8 @@ Three implementations of one function:
     --dpad up to 255): the register kernel `ops/csrc/sw_banded.cu` (one
     thread per problem) for K = 32, 64, 128, and the wide-band kernel
     `ops/csrc/sw_banded_wide.cu` (one warp per problem) for K = 256, 512,
-    1024;
+    1024 (`_launch` also runs it at K = 128, to time it beside the
+    register kernel there);
   - the numpy oracle `banded_fill_numpy` (and `banded_traceback`, the host
     traceback of the main path's rare gapped winners).
 `banded_dp` takes the plain version only for tensors on the CPU.
@@ -255,10 +256,20 @@ def banded_dp(cfg: SwConfig, K: int, rd, mmpen, lens, band):
             f"banded_dp: band width {K} not in {KERNEL_BANDS}: the CUDA "
             f"kernels take bands up to {KERNEL_BANDS[-1]} (--dpad up to "
             f"255)")
+    name = "sw_banded" if K <= REGISTER_BAND_MAX else "sw_banded_wide"
+    return _launch(name, cfg, K, rd, mmpen, lens, band)
+
+
+def _launch(name: str, cfg: SwConfig, K: int, rd, mmpen, lens, band):
+    """Launch the CUDA kernel `name` ("sw_banded" or "sw_banded_wide") on
+    tiles that banded_dp has checked, and count the launch. The wide-band
+    kernel is also built for K = 128, where banded_dp routes to the
+    register kernel, so that the two can be timed side by side there."""
+    lq, p = rd.shape
+    dev = rd.device
     best = torch.empty(p, dtype=torch.int32, device=dev)
     bi = torch.empty_like(best)
     bk = torch.empty_like(best)
-    name = "sw_banded" if K <= REGISTER_BAND_MAX else "sw_banded_wide"
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(kernels.lib(), "bt2_" + name)(
         rd.data_ptr(), mmpen.data_ptr(), lens.data_ptr(), band.data_ptr(),
@@ -270,7 +281,7 @@ def banded_dp(cfg: SwConfig, K: int, rd, mmpen, lens, band):
 
 
 def sw_banded_batch(rd, lens, mmpen, band, cfg: SwConfig,
-                    K: int = DEFAULT_BAND, device="cpu"):
+                    K: int = DEFAULT_BAND, *, device):
     """Batched banded alignment (host arrays in and out).
 
     rd:    [B, Lq] uint8 (pad 5); lens: [B]; mmpen: [B, Lq] int32

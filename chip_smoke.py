@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100, sm_90a).
 
-Run from the root of a checkout:  python3 chip_smoke.py
+Run from the root of a checkout:  python3 chip_smoke.py [--paths]
 
 It imports nothing of JAX. Phases, in order; any failure exits non-zero and
 prints no result line:
@@ -11,9 +11,14 @@ prints no result line:
      spills of each);
   3. kernels: each CUDA kernel against its plain torch version on the same
      CUDA tensors, at the shapes its path gives it (exact equality,
-     tolerance 0: all values are int32), with the median time of each: the
-     register banded kernel, the wide-band kernel (K = 256, 512), the
-     rectangle kernel and the ALU-ceiling probe;
+     tolerance 0: all values are int32), with the median time of each and
+     its bound: the ALU-ceiling probe first (its rate is the int32 ceiling
+     every bound divides by), the register banded kernel (K = 64, and
+     K = 128 beside the wide-band kernel at the same band), the wide-band
+     kernel (K = 256, 512), the rectangle kernel at the three shapes of
+     scripts/bench_rect.py (P = 4096; the unpaired path's run-boundary
+     candidates; the paired path's mate-rescue windows) and on the
+     tie-heavy tile of tests/torch_tiles.py;
   DP. the DP microbench (scripts/bench_dp.py of the port) at its reference
      shape and at the main path's banded shape: cells/s, the ALU ceiling
      its probe measures, roofline_frac, the SASS instruction mix of the
@@ -26,7 +31,8 @@ prints no result line:
      complemented) at dispatch depth 4, as bench.py drives the reference
      package; then one --local batch of 8192 reads. Launch counters are
      zeroed just before and read just after; placement at the planted
-     origin is checked;
+     origin is checked; two more batches run under torch.profiler for the
+     rect kernel's launches and share of device time;
   PE. the paired path at full width, the shape of bench_paired.py: a 12 Mbp
      genome (8 chromosomes of 1.5 Mbp) with the full k-mer seed table on
      the device; PairedAligner(device='cuda') over 150 bp FR pairs
@@ -34,16 +40,21 @@ prints no result line:
      mate, 2% of mates 2 with a substitution every 16 bases, so mate rescue
      runs in every batch), one warm-up batch of 16384 pairs and 4 measured
      at dispatch depth 2; both kernels must launch; placement of both mates
-     at their planted origin and strand is checked;
+     at their planted origin and strand is checked; two more pair batches
+     run under torch.profiler, as in phase 4;
   5. CUDA against CPU, each through the port on both devices with identical
      output: one batch of 2048 reads (decoded batch results and SAM
      lines); 512 pairs (SAM lines); one batch of 2048 reads at --dpad 32,
      band K = 256, the path on which the wide-band kernel must launch;
   6. the entry point: `python -m bowtie2_server_tpu_torch align` on 10k reads
      (-U) and on 5000 pairs (-1/-2) must write well-formed SAM.
-The line before the last is a JSON object {"kernels": [...]}; the last line
-is {"ok": true, "device": {...}}.
+The line before the last is a JSON object {"kernels": [...]}, with each
+kernel's bound (bench_rect.bound: the larger of its int32 operations,
+bench_rect.dp_ops_per_cell a cell, over the probe's ceiling and its bytes
+over HBM3's 3.35 TB/s) and share of bound; the last line is
+{"ok": true, "device": {...}}.
 """
+import argparse
 import json
 import re
 import statistics
@@ -60,6 +71,8 @@ WORK = ROOT / "tmp" / "chip_smoke"      # gitignored scratch of this script
 READ_LEN = 100
 BATCH = 32768
 N_BATCHES = 8       # measured batches, after one warm-up batch
+PROFILED = 2        # batches of each path run under torch.profiler, after
+                    # the measured ones
 DEPTH = 4           # batches in flight (bench.py's dispatch depth)
 # --local sends every winner through the host traceback (numpy, a few ms
 # a read), so its one batch is cut to a quarter of BATCH
@@ -87,6 +100,9 @@ SEEDLESS_FRAC = 0.02
 # score as well.
 PAIR_ORIGIN_MIN = 0.99
 WIDE_MAXHALF = 32   # --dpad whose band (K = 256) the wide-band kernel serves
+# the rect kernel in the profiler's kernel names (rect_warp_kernel; the
+# one-thread kernel it replaced was rect_kernel)
+RECT_SYMBOL = "::rect_"
 KERNEL_TPU_SOURCES = {
     "sw_banded": "bowtie2_server_tpu/ops/sw_banded.py:240",
     "sw_banded_wide": "bowtie2_server_tpu/ops/sw_banded.py:240",
@@ -282,10 +298,15 @@ def hold(label: str, arg, kernel, plain):
     return err, ms, pms
 
 
-def summary(runs):
-    """The largest error of `runs` and the times of the first."""
-    return dict(max_abs_err=max(r[0] for r in runs), ms=runs[0][1],
-                plain_ms=runs[0][2])
+def summary(runs, work, ceiling):
+    """The largest error of `runs`, the times of the first, and the first's
+    bound from its work (int32 operations, bytes) and the int32 ceiling
+    (ops/s): bench_rect.bound, and the share of it the kernel reached."""
+    from bowtie2_server_tpu_torch.scripts.bench_rect import bound
+    b_ms, b_by = bound(*work, ceiling)
+    err, ms, pms = max(r[0] for r in runs), runs[0][1], runs[0][2]
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, frac_of_bound=b_ms / ms)
 
 
 def banded_problems(contigs, seed: int, P: int, K: int, lq: int):
@@ -310,105 +331,221 @@ def banded_problems(contigs, seed: int, P: int, K: int, lq: int):
 
 def phase_kernels(contigs):
     """Each kernel against its plain torch version on the same CUDA
-    tensors. Returns per-kernel {max_abs_err, ms, plain_ms}."""
+    tensors. Returns per-kernel {max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, frac_of_bound, ...}."""
     import torch
-    from bowtie2_server_tpu_torch.ops import alu_probe
+    from bowtie2_server_tpu_torch.ops import alu_probe, kernels
     from bowtie2_server_tpu_torch.ops import sw as tsw
     from bowtie2_server_tpu_torch.ops import sw_banded as tsb
+    from bowtie2_server_tpu_torch.scripts import bench_rect
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_tiles import rect_tie_tile
     dev = torch.device("cuda")
     modes = [("e2e", tsw.SwConfig()),
              ("local", tsw.SwConfig(ma=2, local=True))]
-    out = {}
+
+    def banded_work(args, K):
+        """(int32 operations, bytes) of one e2e banded call:
+        bench_rect.dp_ops_per_cell over the cells the inputs need (rows <
+        len)."""
+        lq, p = args[0].shape
+        cells = int(args[2].clamp(0, lq).sum()) * K
+        return (cells * bench_rect.dp_ops_per_cell(False),
+                4 * (2 * lq * p + (lq + K) * p + p + 3 * p))
+
+    def banded_runs(label, K, args, kernel=None):
+        """hold() of banded_dp, or of the kernel `kernel` where named (the
+        wide-band kernel at K = 128, where banded_dp routes to the register
+        kernel), in both modes."""
+        def run(c):
+            if kernel:
+                return tsb._launch(kernel, c, K, *args)
+            return tsb.banded_dp(c, K, *args)
+        return [hold(f"{label} {mode}: Lq={args[0].shape[0]} K={K} "
+                     f"P={args[0].shape[1]}", cfg, run,
+                     lambda c: tsb.banded_tile_torch(c, K, *args))
+                for mode, cfg in modes]
+
+    # (runs, work) of each banded entry; bounds once the probe has run
+    banded = {}
     K, lq, P = 64, 128, 33792           # the fused stage's main-path shape
     args = [torch.from_numpy(a).to(dev)
             for a in banded_problems(contigs, 5, P, K, lq)]
-    runs = [hold(f"sw_banded {mode}: Lq={lq} K={K} P={P}", cfg,
-                 lambda c: tsb.banded_dp(c, K, *args),
-                 lambda c: tsb.banded_tile_torch(c, K, *args))
-            for mode, cfg in modes]
-    out["sw_banded"] = summary(runs)
-
+    banded["sw_banded"] = (banded_runs("sw_banded", K, args),
+                           banded_work(args, K))
+    # K = 128 (--dpad 16-31), where the register kernel spills: the wrapper
+    # routes it there; the wide-band kernel is timed beside it
+    args = [torch.from_numpy(a).to(dev)
+            for a in banded_problems(contigs, 9, P, 128, lq)]
+    for name in ("sw_banded", "sw_banded_wide"):
+        banded[f"{name} k128"] = (
+            banded_runs(f"{name} at K=128", 128, args, name),
+            banded_work(args, 128))
     # the wide-band kernel at the bands of --dpad 32..127 (Lq of 100 bp
-    # reads, rows padded to 128)
+    # reads, rows padded to 128); the first, K = 256 e2e, is the one
+    # reported
     lq, P = 128, 4096
-    runs = []
-    for K in (256, 512):     # the first run, K = 256 e2e, is the one reported
+    runs, work = [], None
+    for K in (256, 512):
         args = [torch.from_numpy(a).to(dev)
                 for a in banded_problems(contigs, 7, P, K, lq)]
-        runs += [hold(f"sw_banded_wide {mode}: Lq={lq} K={K} P={P}", cfg,
-                      lambda c: tsb.banded_dp(c, K, *args),
-                      lambda c: tsb.banded_tile_torch(c, K, *args))
-                 for mode, cfg in modes]
-    out["sw_banded_wide"] = summary(runs)
+        runs += banded_runs("sw_banded_wide", K, args)
+        work = work or banded_work(args, K)
+    banded["sw_banded_wide"] = (runs, work)
 
-    lq_pad, lc, P = 128, 256, 4096
-    rng = np.random.default_rng(6)
-    ref = rng.integers(0, 4, (lc, P)).astype(np.int32)
-    s = rng.integers(0, lc - lq_pad, P)
-    rd = ref[s[None, :] + np.arange(lq_pad)[:, None], np.arange(P)]
-    for _ in range(3):
-        rd[rng.integers(0, lq_pad, P), np.arange(P)] = rng.integers(0, 4, P)
-    rd[:, ::3] = rng.integers(0, 4, (lq_pad, len(range(0, P, 3))))
-    lens = rng.integers(90, lq_pad + 1, P).astype(np.int32)
-    rd[np.arange(lq_pad)[:, None] >= lens[None, :]] = 5
-    reflens = rng.integers(lq_pad, lc + 1, P).astype(np.int32)
-    mm = rng.integers(2, 7, (lq_pad, P)).astype(np.int32)
-    args = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-            for a in (rd, mm, lens, ref, reflens)]
-    runs = [hold(f"sw (rect) {mode}: Lq_pad={lq_pad} Lc={lc} P={P}", cfg,
-                 lambda c: tsw.sw_tile(c, *args),
-                 lambda c: tsw.sw_tile_torch(c, *args))
-            for mode, cfg in modes]
-    out["sw"] = summary(runs)
-
-    # the ALU-ceiling probe at the DP microbench's shape
+    # the ALU-ceiling probe at the DP microbench's shape, after the banded
+    # kernels have run the card up to its clocks: its rate is the int32
+    # ceiling of every bound, and its bound is its own time
     rows, P, nsteps = 64, 32768, 3000
     x = torch.from_numpy(np.random.default_rng(8).integers(
         0, 100, (rows, P)).astype(np.int32)).to(dev)
-    out["alu_probe"] = summary([hold(
-        f"alu_probe: [{rows}, {P}] nsteps={nsteps}", nsteps,
-        lambda n: alu_probe.alu_chain(x, n),
-        lambda n: alu_probe.alu_chain_torch(x, n))])
+    run = hold(f"alu_probe: [{rows}, {P}] nsteps={nsteps}", nsteps,
+               lambda n: alu_probe.alu_chain(x, n),
+               lambda n: alu_probe.alu_chain_torch(x, n))
+    n_ops = alu_probe.OPS_PER_STEP * nsteps * rows * P
+    ceiling = n_ops / (run[1] / 1e3)
+    log(f"int32 ceiling measured by the probe: {ceiling:.4e} ops/s")
+    out = {"alu_probe": dict(
+        summary([run], (n_ops, 0), ceiling), ceiling_ops_per_s=ceiling,
+        bound_note="the probe's own time: it measures the int32 ceiling "
+                   "that the other kernels' bounds divide by")}
+    bs = {k: summary(r, w, ceiling) for k, (r, w) in banded.items()}
+    for name in ("sw_banded", "sw_banded_wide"):
+        out[name] = dict(bs[name], k128=bs[f"{name} k128"])
+        out[name]["max_abs_err"] = max(bs[name]["max_abs_err"],
+                                       bs[f"{name} k128"]["max_abs_err"])
+
+    # the rectangle kernel at bench_rect's three shapes, e2e and local; the
+    # unpaired path's shape (P = 210) is the one reported
+    shapes = bench_rect.measure(dev, ceiling, reps=5, plain_reps=3)
+    for r in shapes:
+        log(f"sw (rect) {r['shape']} {r['mode']}: Lq_pad={r['lq_pad']} "
+            f"Lc={r['lc']} P={r['P']} max_abs_err={r['max_abs_err']} kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['frac_of_bound']:.4f} of bound")
+    # and exact on the tie-heavy tile at the mate-rescue widths
+    tie = [torch.from_numpy(a).to(dev) for a in rect_tie_tile(3, 192, 640)]
+    tie_err = 0
+    for mode, cfg in modes:
+        got, want = tsw.sw_tile(cfg, *tie), tsw.sw_tile_torch(cfg, *tie)
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        log(f"sw (rect) tie-heavy tile {mode}: Lq_pad={tie[0].shape[0]} "
+            f"Lc={tie[3].shape[0]} P={tie[0].shape[1]} max_abs_err={err}")
+        tie_err = max(tie_err, err)
+    # the SASS of a wavefront step at the paths' row widths (J rows a lane)
+    loop = {}
+    for J in (4, 6):
+        n, mix = kernels.loop_mix(f"rect_warp_kernelILi{J}ELb0E")
+        loop[f"J{J}"] = n
+        log(f"rect kernel step loop, J = {J}, e2e (SASS): {n} instructions "
+            f"{mix}")
+    main = next(r for r in shapes if r["shape"] == "unpaired")
+    out["sw"] = dict(
+        max_abs_err=max([tie_err] + [r["max_abs_err"] for r in shapes]),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "frac_of_bound")}, shapes=shapes,
+        step_loop_instructions=loop)
     for name, r in out.items():
+        log(f"{name}: {r['ms']:.4f} ms against a bound of "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['frac_of_bound']:.4f} of it")
         if r["max_abs_err"] != 0:
             raise RuntimeError(f"{name}: kernel disagrees with its plain "
                                f"version (max_abs_err {r['max_abs_err']})")
     return out
 
 
+def pipelined(submit, wait, items, depth):
+    """Submit every item, keeping at most `depth` in flight; the results in
+    order."""
+    outs, inflight = [], deque()
+    for it in items:
+        inflight.append(submit(*it))
+        if len(inflight) >= depth:
+            outs.append(wait(inflight.popleft()))
+    while inflight:
+        outs.append(wait(inflight.popleft()))
+    return outs
+
+
+def profile_device(fn):
+    """fn() under torch.profiler. Returns (wall ms, {name: [count, device
+    us]}) over the card's activities (kernels, copies, fills)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            c = per.setdefault(e.name, [0, 0.0])
+            c[0] += 1
+            c[1] += e.time_range.elapsed_us()
+    return wall, per
+
+
+def device_shares(label, prof, n_batches):
+    """Log and return the rect kernel's launches and share of device time,
+    and the device busy share, from profile_device's result over
+    n_batches batches."""
+    wall, per = prof
+    total = sum(us for _, us in per.values())
+    if total == 0:
+        log(f"{label}: device time not measured (the profiler saw no "
+            f"device activity)")
+        return None
+    n = sum(c for k, (c, _) in per.items() if RECT_SYMBOL in k)
+    rect = sum(us for k, (_, us) in per.items() if RECT_SYMBOL in k)
+    out = dict(batches=n_batches, wall_ms=wall, device_ms=total / 1e3,
+               busy_share=total / 1e3 / wall, rect_launches=n,
+               rect_ms=rect / 1e3, rect_share=rect / total)
+    log(f"{label}, {n_batches} batches under torch.profiler: the rect "
+        f"kernel {n} launches, {rect / 1e3:.4f} ms of device time, "
+        f"{rect / total:.4f} of it; device busy {total / 1e3:.1f} ms in "
+        f"{wall:.1f} ms of wall, a busy share of {out['busy_share']:.4f}")
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])[:6]
+    for name, (c, us) in top:
+        log(f"  {us / total:.4f} {us / 1e3:9.3f} ms {c:6d}x {name[:90]}")
+    return out
+
+
 def run_main_path(idx, contigs, device, batch, n_batches, seed=11):
     """bench.py's loop on the port: one warm-up batch, then n_batches at
-    dispatch depth DEPTH. Returns (reads/s, aligned fraction, origin
-    fraction, warm-up seconds)."""
+    dispatch depth DEPTH, then PROFILED batches under torch.profiler.
+    Returns (reads/s, aligned fraction, origin fraction, warm-up seconds,
+    the profile)."""
     import torch
     from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner
     from bowtie2_server_tpu_torch.io.fastq import make_batch
-    names, seqs, quals, origin = make_reads(seed, contigs,
-                                            batch * (n_batches + 1))
-    batches = [make_batch(names[i : i + batch], seqs[i : i + batch],
-                          quals[i : i + batch])
+    names, seqs, quals, origin = make_reads(
+        seed, contigs, batch * (n_batches + 1 + PROFILED))
+    batches = [(make_batch(names[i : i + batch], seqs[i : i + batch],
+                           quals[i : i + batch]),)
                for i in range(0, len(names), batch)]
     al = UnpairedAligner(idx, device=device)
     t0 = time.time()
-    outs = [al.align_batch(batches[0])]
+    outs = [al.align_batch(*batches[0])]
     warm = time.time() - t0
     t0 = time.time()
-    inflight = deque()
-    for b in batches[1:]:
-        inflight.append(al.align_async(b))
-        if len(inflight) >= DEPTH:
-            outs.append(al.align_wait(inflight.popleft()))
-    while inflight:
-        outs.append(al.align_wait(inflight.popleft()))
-    if al.device.type == "cuda":
-        torch.cuda.synchronize()
+    outs += pipelined(al.align_async, al.align_wait,
+                      batches[1 : n_batches + 1], DEPTH)
+    torch.cuda.synchronize()
     dt = time.time() - t0
+    prof = profile_device(lambda: pipelined(
+        al.align_async, al.align_wait, batches[n_batches + 1 :], DEPTH))
     n = batch * n_batches
     aligned = sum(r.n_aligned() for r in outs[1:]) / n
     frac = np.mean([origin_fraction(r, tuple(o[i * batch : (i + 1) * batch]
                                              for o in origin), False)
                     for i, r in enumerate(outs)])
-    return n / dt, aligned, float(frac), warm
+    return n / dt, aligned, float(frac), warm, prof
 
 
 def run_local_batch(idx, contigs, device, batch, seed=12):
@@ -427,23 +564,28 @@ def run_local_batch(idx, contigs, device, batch, seed=12):
             origin_fraction(recs, origin, True))
 
 
-def phase_main(idx, contigs):
+def phase_main(idx, contigs, local=True):
     import torch
     from bowtie2_server_tpu_torch.ops import kernels
     kernels.reset_launches()
-    rps, aligned, frac, warm = run_main_path(idx, contigs, "cuda", BATCH,
-                                             N_BATCHES)
+    rps, aligned, frac, warm, prof = run_main_path(idx, contigs, "cuda",
+                                                   BATCH, N_BATCHES)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    n_all = 1 + N_BATCHES + PROFILED
     log(f"main path (e2e): {rps:.1f} reads/s over {N_BATCHES} batches of "
         f"{BATCH} at depth {DEPTH} (warm-up batch {warm:.2f} s); aligned "
         f"{aligned:.4f}; at planted origin and strand {frac:.4f}; "
-        f"kernel launches {launches}")
+        f"kernel launches over all {n_all} batches {launches}; the rect "
+        f"kernel {launches['sw'] / n_all:.2f} a batch")
+    shares = device_shares("main path (e2e)", prof, PROFILED)
     if frac < ORIGIN_MIN_E2E:
         raise RuntimeError(f"origin fraction {frac:.4f} < {ORIGIN_MIN_E2E}")
     for name in ("sw_banded", "sw"):
         if launches[name] == 0:
             raise RuntimeError(f"the main path never launched {name}")
+    if not local:
+        return launches, dict(reads_per_s=rps, origin=frac, device=shares)
     l_rps, l_aligned, l_frac = run_local_batch(idx, contigs, "cuda",
                                                LOCAL_BATCH)
     log(f"main path (--local, one batch of {LOCAL_BATCH}): {l_rps:.1f} "
@@ -453,7 +595,8 @@ def phase_main(idx, contigs):
     if l_frac < ORIGIN_MIN_LOCAL:
         raise RuntimeError(f"local origin fraction {l_frac:.4f} < "
                            f"{ORIGIN_MIN_LOCAL}")
-    return launches
+    return launches, dict(reads_per_s=rps, origin=frac,
+                          local_reads_per_s=l_rps, device=shares)
 
 
 def phase_dp_bench():
@@ -485,58 +628,61 @@ def phase_dp_bench():
 
 def run_paired_path(idx, chroms, device, batch, n_batches, seed=21):
     """bench_paired.py's loop on the port: one warm-up pair batch, then
-    n_batches at dispatch depth PAIR_DEPTH. Returns (pairs/s, concordant
-    fraction, origin fraction, warm-up seconds)."""
+    n_batches at dispatch depth PAIR_DEPTH, then PROFILED pair batches
+    under torch.profiler. Returns (pairs/s, concordant fraction, origin
+    fraction, warm-up seconds, the profile)."""
     import torch
     from bowtie2_server_tpu_torch.align.paired import PairedAligner
     from bowtie2_server_tpu_torch.io.fastq import make_batch
-    names, s1, s2, quals, origin = make_pairs(seed, chroms,
-                                              batch * (n_batches + 1))
+    names, s1, s2, quals, origin = make_pairs(
+        seed, chroms, batch * (n_batches + 1 + PROFILED))
     b1s, b2s = ([make_batch(names[i : i + batch], s[i : i + batch],
                             quals[i : i + batch])
                  for i in range(0, len(names), batch)] for s in (s1, s2))
+    pairs = list(zip(b1s, b2s))
     pal = PairedAligner(idx, device=device)
     t0 = time.time()
-    outs = [pal.align_batch(b1s[0], b2s[0])]
+    outs = [pal.align_batch(*pairs[0])]
     warm = time.time() - t0
     t0 = time.time()
-    inflight = deque()
-    for b1, b2 in zip(b1s[1:], b2s[1:]):
-        inflight.append(pal.align_async(b1, b2))
-        if len(inflight) >= PAIR_DEPTH:
-            outs.append(pal.align_wait(inflight.popleft()))
-    while inflight:
-        outs.append(pal.align_wait(inflight.popleft()))
-    if pal.up.device.type == "cuda":
-        torch.cuda.synchronize()
+    outs += pipelined(pal.align_async, pal.align_wait,
+                      pairs[1 : n_batches + 1], PAIR_DEPTH)
+    torch.cuda.synchronize()
     dt = time.time() - t0
+    prof = profile_device(lambda: pipelined(
+        pal.align_async, pal.align_wait, pairs[n_batches + 1 :],
+        PAIR_DEPTH))
     n = batch * n_batches
     conc = sum(p.n_concordant() for p in outs[1:]) / n
     frac = np.mean([pair_origin_fraction(p, tuple(
         o[i * batch : (i + 1) * batch] for o in origin))
         for i, p in enumerate(outs)])
-    return n / dt, conc, float(frac), warm
+    return n / dt, conc, float(frac), warm, prof
 
 
 def phase_paired(pidx, chroms):
     import torch
     from bowtie2_server_tpu_torch.ops import kernels
     kernels.reset_launches()
-    pps, conc, frac, warm = run_paired_path(pidx, chroms, "cuda",
-                                            PAIR_BATCH, PAIR_BATCHES)
+    pps, conc, frac, warm, prof = run_paired_path(pidx, chroms, "cuda",
+                                                  PAIR_BATCH, PAIR_BATCHES)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    n_all = 1 + PAIR_BATCHES + PROFILED
     log(f"paired path (e2e): {pps:.1f} pairs/s over {PAIR_BATCHES} batches "
         f"of {PAIR_BATCH} pairs at depth {PAIR_DEPTH} (warm-up batch "
         f"{warm:.2f} s); concordant {conc:.4f}; both mates at planted "
-        f"origin and strand {frac:.4f}; kernel launches {launches}")
+        f"origin and strand {frac:.4f}; kernel launches over all {n_all} "
+        f"batches {launches}; the rect kernel {launches['sw'] / n_all:.2f} "
+        f"a batch")
+    shares = device_shares("paired path (e2e)", prof, PROFILED)
     if frac < PAIR_ORIGIN_MIN:
         raise RuntimeError(f"pair origin fraction {frac:.4f} < "
                            f"{PAIR_ORIGIN_MIN}")
     for name in ("sw_banded", "sw"):
         if launches[name] == 0:
             raise RuntimeError(f"the paired path never launched {name}")
-    return launches
+    return launches, dict(pairs_per_s=pps, origin=frac, device=shares)
 
 
 def phase_parity(idx, contigs, n=2048):
@@ -693,7 +839,13 @@ def phase_cli_paired(pbase: Path, chroms, n=5000, device="cuda"):
         f"proper pairs; {summ}")
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--paths", action="store_true", help=(
+        "only phases 1, 2, 4 (end-to-end) and PE; the last line is their "
+        "JSON. To compare two checkouts in turns on one card, run a copy "
+        "of this script placed in the root of each"))
+    paths_only = ap.parse_args(argv).paths
     card = phase_env()
     import torch
     from bowtie2_server_tpu_torch.index.build import build_index
@@ -715,10 +867,17 @@ def main():
     pidx = FmIndex.load(pbase)
     log(f"paired genome {pidx.n} bp in {len(chroms)} chromosomes, index "
         f"built in {time.time() - t0:.1f} s")
+    if paths_only:
+        _, main_res = phase_main(idx, contigs, local=False)
+        _, pe_res = phase_paired(pidx, chroms)
+        log(card_line())
+        log(json.dumps({"paths": {"unpaired": main_res, "paired": pe_res},
+                        "package": str(ROOT)}))
+        return
     times = phase_kernels(contigs)
     dp_launches = phase_dp_bench()
-    launches = phase_main(idx, contigs)
-    pe_launches = phase_paired(pidx, chroms)
+    launches, main_res = phase_main(idx, contigs)
+    pe_launches, pe_res = phase_paired(pidx, chroms)
     phase_parity(idx, contigs)
     phase_parity_paired(pidx, chroms)
     wide_launches = phase_parity_wide(idx, contigs)
@@ -732,10 +891,13 @@ def main():
                          sw_banded_wide=wide_launches["sw_banded_wide"],
                          alu_probe=dp_launches["alu_probe"])
     log(f"launches on the paired path: {pe_launches}")
+    log(json.dumps({"paths": {"unpaired": main_res, "paired": pe_res}}))
+    # no PyTorch call computes any of these functions: library_ms is null
     kern = [dict(name=name, route="cuda",
                  source=f"bowtie2_server_tpu_torch/ops/csrc/{name}.cu",
                  replaces=KERNEL_TPU_SOURCES[name],
-                 launches=path_launches[name], **times[name])
+                 launches=path_launches[name], library_ms=None,
+                 **times[name])
             for name in ("sw_banded", "sw_banded_wide", "sw", "alu_probe")]
     log(f"all phases passed in {time.time() - t_all:.1f} s")
     log(card_line() or card)

@@ -13,7 +13,8 @@ torch = pytest.importorskip("torch")
 from bowtie2_server_tpu_torch.ops import alu_probe, kernels  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw as tsw  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw_banded as tsb  # noqa: E402
-from torch_tiles import CFGS, RECT_CFGS, banded_tile, rect_tile  # noqa: E402
+from torch_tiles import (CFGS, RECT_CFGS, banded_tile, rect_tie_tile,  # noqa
+                         rect_tile)
 
 
 @pytest.fixture
@@ -40,10 +41,29 @@ def test_banded_kernel_equals_plain(name, K, cuda_device):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("name", list(RECT_CFGS))
-def test_sw_kernel_equals_plain(name, cuda_device):
+@pytest.mark.parametrize("name", list(CFGS))
+def test_wide_kernel_at_register_band(name, cuda_device):
+    """The wide-band kernel also takes K = 128, where banded_dp routes to
+    the register kernel: both equal the plain version there."""
     args = [torch.from_numpy(a).to(cuda_device)
-            for a in rect_tile(2, 136, 200)]
+            for a in banded_tile(5, 100, 128)]
+    cfg = tsw.SwConfig(**CFGS[name])
+    want = tsb.banded_tile_torch(cfg, 128, *args)
+    for kernel in ("sw_banded", "sw_banded_wide"):
+        got = tsb._launch(kernel, cfg, 128, *args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+# P = 129 problems: not a multiple of the rect kernel's warps a block; the
+# Lq_pad reach every instantiation of bt2_sw (J = 4, 6, 8, 16, 32 rows a lane)
+@pytest.mark.parametrize("tile", [rect_tile, rect_tie_tile],
+                         ids=["planted", "ties"])
+@pytest.mark.parametrize("lq_pad", [8, 136, 192, 250, 500, 1024])
+@pytest.mark.parametrize("name", list(RECT_CFGS))
+def test_sw_kernel_equals_plain(name, lq_pad, tile, cuda_device):
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in tile(2 + lq_pad, lq_pad, 200, p=129)]
     cfg = tsw.SwConfig(**RECT_CFGS[name])
     n0 = kernels.LAUNCHES["sw"]
     got = tsw.sw_tile(cfg, *args)

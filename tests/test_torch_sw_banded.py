@@ -83,3 +83,11 @@ def test_banded_dp_checks_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         tsb.banded_dp(cfg, 32, rd, rd, lens,
                       torch.zeros((4, 40), dtype=torch.int32).T)
+
+
+def test_sw_banded_batch_needs_a_device():
+    """No CPU default: the caller names where the DP runs."""
+    rd, mm, lens, band = make_tile(7, 30, 32)
+    with pytest.raises(TypeError, match="device"):
+        tsb.sw_banded_batch(rd.T.astype(np.uint8), lens, mm.T,
+                            band.T.astype(np.uint8), SwConfig(), K=32)

@@ -54,33 +54,74 @@ def banded_tile(seed, lq, K):
     return [np.ascontiguousarray(a, np.int32) for a in (rd, mm, lens, band)]
 
 
-def rect_tile(seed, lq_pad, lc):
-    """[rows, P] int32 inputs: reads planted in their windows with
+def rect_tile(seed, lq_pad, lc, p=P):
+    """[rows, p] int32 inputs: reads planted in their windows with
     substitutions and indels, N codes, ragged read and window lengths."""
     rng = np.random.default_rng(seed)
-    ref = rng.integers(0, 4, (lc, P))
-    rd = np.full((lq_pad, P), 5)
-    lens = rng.integers(lq_pad // 2, lq_pad + 1, P)
+    ref = rng.integers(0, 4, (lc, p))
+    rd = np.full((lq_pad, p), 5)
+    lens = rng.integers(lq_pad // 2, lq_pad + 1, p)
     lens[::5] = lq_pad
-    reflens = np.minimum(lc, lens + rng.integers(0, lc, P))
+    reflens = np.minimum(lc, lens + rng.integers(0, lc, p))
     reflens[::7] = lc
-    for p in range(P):
-        n = int(lens[p])
+    for q in range(p):
+        n = int(lens[q])
         s = int(rng.integers(0, max(1, lc - n)))
-        r = ref[s : s + n, p].copy()
+        r = ref[s : s + n, q].copy()
         r = np.concatenate([r, rng.integers(0, 4, n - len(r))])
-        for _ in range(p % 4):
+        for _ in range(q % 4):
             r[rng.integers(0, n)] = rng.integers(0, 4)
-        if p % 5 == 1:
-            q = int(rng.integers(2, n - 2))
-            r = np.concatenate([r[:q], r[q + 1 :], [1]])
-        elif p % 5 == 2:
-            q = int(rng.integers(2, n - 2))
-            r = np.concatenate([r[:q], [3], r[q:]])[:n]
-        elif p % 5 == 3:
+        if q % 5 == 1:
+            k = int(rng.integers(2, max(3, n - 2)))
+            r = np.concatenate([r[:k], r[k + 1 :], [1]])
+        elif q % 5 == 2:
+            k = int(rng.integers(2, max(3, n - 2)))
+            r = np.concatenate([r[:k], [3], r[k:]])[:n]
+        elif q % 5 == 3:
             r[rng.integers(0, n)] = 5
-            ref[rng.integers(0, lc), p] = 4
-        rd[:n, p] = r
-    mm = rng.integers(2, 7, (lq_pad, P))
+            ref[rng.integers(0, lc), q] = 4
+        rd[:n, q] = r
+    mm = rng.integers(2, 7, (lq_pad, p))
+    return [np.ascontiguousarray(a, np.int32)
+            for a in (rd, mm, lens, ref, reflens)]
+
+
+def rect_tie_tile(seed, lq_pad, lc, p=P):
+    """[rows, p] int32 inputs full of equal-score ends: homopolymer and
+    tandem-repeat references (some with N codes) and reads cut from them,
+    all-N reads, reads of length 1 and one of length 0, windows shorter
+    than Lc (down to 0 and 1), and a constant mismatch penalty in half the
+    problems."""
+    rng = np.random.default_rng(seed)
+    ref = np.full((lc, p), 4)
+    rd = np.full((lq_pad, p), 5)
+    lens = rng.integers(1, lq_pad + 1, p)
+    lens[::11] = lq_pad
+    reflens = rng.integers(2, lc, p)
+    for q in range(p):
+        kind = q % 10
+        unit = rng.integers(0, 4, 1 + q % 4)      # 1: homopolymer
+        reps = np.resize(unit, lc + lq_pad + 4)
+        if kind == 4:
+            reps[rng.integers(0, lc, 3)] = 4
+        if kind == 8:
+            reps = rng.integers(0, 4, len(reps))
+        if kind == 9:
+            reflens[q] = q % 2
+        ref[: reflens[q], q] = reps[: reflens[q]]
+        n = int(lens[q])
+        if kind in (6, 7):
+            n = lens[q] = 1
+        r = reps[int(rng.integers(0, len(unit))):][:n].copy()
+        if kind == 1:
+            r[rng.integers(0, n)] = (r[0] + 1) % 4
+        elif kind == 5:
+            r[:] = 5                                # all-N read
+        elif kind in (7, 8):
+            r = rng.integers(0, 4, n)
+        rd[:n, q] = r
+    lens[p - 1] = 0
+    rd[:, p - 1] = 5
+    mm = np.where(np.arange(p) % 2 == 0, 6, rng.integers(2, 7, (lq_pad, p)))
     return [np.ascontiguousarray(a, np.int32)
             for a in (rd, mm, lens, ref, reflens)]
