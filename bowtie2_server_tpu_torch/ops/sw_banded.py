@@ -21,7 +21,9 @@ Three implementations of one function:
   - two CUDA kernels, launched by `banded_dp` for tensors on a CUDA device
     at every band width in KERNEL_BANDS (all that `band_for` gives for
     --dpad up to 255): the register kernel `ops/csrc/sw_banded.cu` (one
-    thread per problem) for K = 32, 64, 128, and the wide-band kernel
+    thread per problem, DPX max-adds and byte-table scores, with a general
+    kernel behind it for scores outside a byte) for K = 32, 64, 128, and
+    the wide-band kernel
     `ops/csrc/sw_banded_wide.cu` (one warp per problem) for K = 256, 512,
     1024 (`_launch` also runs it at K = 128, to time it beside the
     register kernel there);
@@ -237,9 +239,10 @@ def banded_tile_torch(cfg: SwConfig, K: int, rd, mmpen, lens, band):
 
 def banded_dp(cfg: SwConfig, K: int, rd, mmpen, lens, band):
     """Banded DP on [rows, P] tiles (the layout of the reference's
-    `_banded_kernel`). On CUDA tensors this launches a CUDA kernel:
-    ops/csrc/sw_banded.cu for K <= REGISTER_BAND_MAX (counted as
-    `sw_banded`), ops/csrc/sw_banded_wide.cu above (`sw_banded_wide`); on
+    `_banded_kernel`). On CUDA tensors this launches CUDA kernels:
+    ops/csrc/sw_banded.cu for K <= REGISTER_BAND_MAX (its two kernels,
+    counted as `sw_banded` and `sw_banded_general`),
+    ops/csrc/sw_banded_wide.cu above (`sw_banded_wide`); on
     CPU tensors it runs `banded_tile_torch`. Returns (best, bi, bk) int32
     [P]."""
     lq, p = rd.shape
@@ -262,7 +265,7 @@ def banded_dp(cfg: SwConfig, K: int, rd, mmpen, lens, band):
 
 def _launch(name: str, cfg: SwConfig, K: int, rd, mmpen, lens, band):
     """Launch the CUDA kernel `name` ("sw_banded" or "sw_banded_wide") on
-    tiles that banded_dp has checked, and count the launch. The wide-band
+    tiles that banded_dp has checked, and count the launches. The wide-band
     kernel is also built for K = 128, where banded_dp routes to the
     register kernel, so that the two can be timed side by side there."""
     lq, p = rd.shape
@@ -277,6 +280,8 @@ def _launch(name: str, cfg: SwConfig, K: int, rd, mmpen, lens, band):
         *kernels.cfg_args(cfg), int(cfg.local), stream)
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
+    if name == "sw_banded":   # and the general kernel behind it
+        kernels.LAUNCHES["sw_banded_general"] += 1
     return best, bi, bk
 
 

@@ -19,7 +19,9 @@ kernel's int32 operations per cell, whose E scan is a Kogge-Stone scan of
 counted is the same whatever implements it. The CUDA kernels replace the
 scan with a sequential chain; their own instructions per cell, read from
 the SASS of the built library (`kernels.loop_mix`), are printed beside it
-as `kernel_ops_per_cell`. The ceiling is measured by the probe
+as `kernel_ops_per_cell`. A kernel that needs fewer instructions a cell
+than the model counts operations reads `roofline_frac` above 1: the
+register kernel's fused max-adds do. The ceiling is measured by the probe
 (`ops/alu_probe.py`): [64, 32768] int32 through 3000 dependent steps of 4
 operations.
 
@@ -106,9 +108,11 @@ def banded_inputs(P: int, L: int, K: int, device):
 
 
 def kernel_ops_per_cell(K: int, local: bool) -> float:
-    """SASS instructions a thread issues per DP cell in the row loop of the
-    CUDA kernel that serves band K (the whole loop body, so the scored
-    row's arg-max counts in every row)."""
+    """SASS instructions a thread issues per DP cell in the largest loop of
+    the CUDA kernel that serves band K: for the register kernel the loop
+    over the gap rows, where nearly all cells are (rows with gaps barred
+    issue fewer; the end-to-end arg-max of the one scored row runs after
+    the loops), for the wide-band kernel its row loop."""
     if K <= REGISTER_BAND_MAX:
         n, _ = kernels.loop_mix(f"banded_kernelILi{K}ELb{int(local)}E")
         return n / K

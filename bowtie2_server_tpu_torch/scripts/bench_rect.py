@@ -94,8 +94,9 @@ def rect_inputs(P: int, lq_pad: int, lc: int, read_lens, win_lens,
 
 
 def dp_ops_per_cell(local: bool) -> int:
-    """int32 operations an affine-gap DP cell needs, for the rectangle and
-    the banded function alike: the reference bench's op model
+    """int32 operations an affine-gap DP cell is charged in the rect
+    kernel's bound (the banded bound counts the recurrence's own,
+    bench_banded.banded_ops_per_cell): the reference bench's op model
     (bench_dp.ops_per_cell, 14 + 2*ceil(log2 n)) with its log-depth gap
     scan replaced by what the sequential gap chain costs, one subtract and
     one max a cell: 16, +1 for the --local clamp. The chain is exact (the

@@ -12,10 +12,17 @@ prints no result line:
   3. kernels: each CUDA kernel against its plain torch version on the same
      CUDA tensors, at the shapes its path gives it (exact equality,
      tolerance 0: all values are int32), with the median time of each and
-     its bound: the ALU-ceiling probe first (its rate is the int32 ceiling
-     every bound divides by), the register banded kernel (K = 64, and
-     K = 128 beside the wide-band kernel at the same band), the wide-band
-     kernel (K = 256, 512), the rectangle kernel at the three shapes of
+     its bound: the wide-band kernel (K = 128, beside the register kernel
+     at the same band, and K = 256, 512), the ALU-ceiling probe (its rate
+     is the int32 ceiling every bound divides by), the register banded
+     kernel at the shapes of scripts/bench_banded.py (P = 33792, Lq = 128:
+     K = 64 with 4 in 5 reads of 128 bases, K = 64 with every read 100
+     bases as on the main path, K = 32, K = 128), with the SASS
+     instructions a cell of its row loop, its general kernel (the one for
+     scores outside a byte, which the paths launch after it) at the K = 64
+     shape under a scoring that sends every problem there, and both on the
+     edge tile of tests/torch_tiles.py; the rectangle kernel at the three
+     shapes of
      scripts/bench_rect.py (P = 4096; the unpaired path's run-boundary
      candidates; the paired path's mate-rescue windows) and on the
      tie-heavy tile of tests/torch_tiles.py;
@@ -32,7 +39,9 @@ prints no result line:
      package; then one --local batch of 8192 reads. Launch counters are
      zeroed just before and read just after; placement at the planted
      origin is checked; two more batches run under torch.profiler for the
-     rect kernel's launches and share of device time;
+     device busy share and the register banded kernel's, its general
+     kernel's and the rect kernel's launches, device ms and share of device
+     time;
   PE. the paired path at full width, the shape of bench_paired.py: a 12 Mbp
      genome (8 chromosomes of 1.5 Mbp) with the full k-mer seed table on
      the device; PairedAligner(device='cuda') over 150 bp FR pairs
@@ -49,10 +58,11 @@ prints no result line:
   6. the entry point: `python -m bowtie2_server_tpu_torch align` on 10k reads
      (-U) and on 5000 pairs (-1/-2) must write well-formed SAM.
 The line before the last is a JSON object {"kernels": [...]}, with each
-kernel's bound (bench_rect.bound: the larger of its int32 operations,
-bench_rect.dp_ops_per_cell a cell, over the probe's ceiling and its bytes
-over HBM3's 3.35 TB/s) and share of bound; the last line is
-{"ok": true, "device": {...}}.
+kernel's bound (bench_rect.bound: the larger of its int32 operations over
+the probe's ceiling and its bytes over HBM3's 3.35 TB/s; a cell counts
+bench_banded.banded_ops_per_cell operations in the banded kernels,
+bench_rect.dp_ops_per_cell in the rect kernel) and share of bound; the
+last line is {"ok": true, "device": {...}}.
 """
 import argparse
 import json
@@ -100,14 +110,23 @@ SEEDLESS_FRAC = 0.02
 # score as well.
 PAIR_ORIGIN_MIN = 0.99
 WIDE_MAXHALF = 32   # --dpad whose band (K = 256) the wide-band kernel serves
-# the rect kernel in the profiler's kernel names (rect_warp_kernel; the
-# one-thread kernel it replaced was rect_kernel)
-RECT_SYMBOL = "::rect_"
-KERNEL_TPU_SOURCES = {
-    "sw_banded": "bowtie2_server_tpu/ops/sw_banded.py:240",
-    "sw_banded_wide": "bowtie2_server_tpu/ops/sw_banded.py:240",
-    "sw": "bowtie2_server_tpu/ops/sw.py:282",
-    "alu_probe": "scripts/bench_dp.py:48",
+# the kernels device_shares reports, by a part of their names in the
+# profiler: the register banded kernel, the general kernel launched after
+# it in every call (it returns at once on the paths' scores), and the rect
+# kernel (rect_warp_kernel; the one-thread kernel it replaced was
+# rect_kernel)
+SHARE_SYMBOLS = {"banded": "::banded_kernel<",
+                 "banded_general": "::banded_general_kernel<",
+                 "rect": "::rect_"}
+# kernels line: name -> (source in the port, the TPU kernel it replaces)
+KERNEL_SOURCES = {
+    "sw_banded": ("sw_banded.cu", "bowtie2_server_tpu/ops/sw_banded.py:240"),
+    "sw_banded_general": ("sw_banded.cu",
+                          "bowtie2_server_tpu/ops/sw_banded.py:240"),
+    "sw_banded_wide": ("sw_banded_wide.cu",
+                       "bowtie2_server_tpu/ops/sw_banded.py:240"),
+    "sw": ("sw.cu", "bowtie2_server_tpu/ops/sw.py:282"),
+    "alu_probe": ("alu_probe.cu", "scripts/bench_dp.py:48"),
 }
 
 
@@ -309,26 +328,6 @@ def summary(runs, work, ceiling):
                 bound_by=b_by, frac_of_bound=b_ms / ms)
 
 
-def banded_problems(contigs, seed: int, P: int, K: int, lq: int):
-    """[rows, P] int32 inputs at the fused stage's shapes: half the bands
-    cut from the genome around planted reads (as the band gather does),
-    half random; ragged lengths; mismatch penalties of Phred qualities."""
-    rng = np.random.default_rng(seed)
-    chrom = contigs[0]
-    s = rng.integers(K, len(chrom) - lq - 2 * K, P)
-    band = chrom[(s - K // 2)[None, :] + np.arange(lq + K)[:, None]]
-    band = band.astype(np.int32)
-    rd = band[K // 2 : K // 2 + lq].copy()
-    for _ in range(3):
-        rd[rng.integers(0, lq, P), np.arange(P)] = rng.integers(0, 4, P)
-    rnd = np.arange(P) % 2 == 1
-    band[:, rnd] = rng.integers(0, 4, (lq + K, int(rnd.sum())))
-    rd[rng.integers(0, lq, P // 16), rng.integers(0, P, P // 16)] = 5
-    mm = rng.integers(2, 7, (lq, P)).astype(np.int32)
-    lens = np.where(np.arange(P) % 5 == 0, rng.integers(60, lq + 1, P), lq)
-    return [np.ascontiguousarray(a, np.int32) for a in (rd, mm, lens, band)]
-
-
 def phase_kernels(contigs):
     """Each kernel against its plain torch version on the same CUDA
     tensors. Returns per-kernel {max_abs_err, ms, plain_ms, bound_ms,
@@ -337,61 +336,43 @@ def phase_kernels(contigs):
     from bowtie2_server_tpu_torch.ops import alu_probe, kernels
     from bowtie2_server_tpu_torch.ops import sw as tsw
     from bowtie2_server_tpu_torch.ops import sw_banded as tsb
-    from bowtie2_server_tpu_torch.scripts import bench_rect
+    from bowtie2_server_tpu_torch.scripts import bench_banded, bench_rect
     sys.path.insert(0, str(ROOT / "tests"))
-    from torch_tiles import rect_tie_tile
+    from torch_tiles import (CFGS, LARGE_SCORE_CFG, banded_edge_tile,
+                             rect_tie_tile)
     dev = torch.device("cuda")
     modes = [("e2e", tsw.SwConfig()),
              ("local", tsw.SwConfig(ma=2, local=True))]
 
-    def banded_work(args, K):
-        """(int32 operations, bytes) of one e2e banded call:
-        bench_rect.dp_ops_per_cell over the cells the inputs need (rows <
-        len)."""
-        lq, p = args[0].shape
-        cells = int(args[2].clamp(0, lq).sum()) * K
-        return (cells * bench_rect.dp_ops_per_cell(False),
-                4 * (2 * lq * p + (lq + K) * p + p + 3 * p))
-
-    def banded_runs(label, K, args, kernel=None):
-        """hold() of banded_dp, or of the kernel `kernel` where named (the
-        wide-band kernel at K = 128, where banded_dp routes to the register
-        kernel), in both modes."""
-        def run(c):
-            if kernel:
-                return tsb._launch(kernel, c, K, *args)
-            return tsb.banded_dp(c, K, *args)
-        return [hold(f"{label} {mode}: Lq={args[0].shape[0]} K={K} "
-                     f"P={args[0].shape[1]}", cfg, run,
+    def wide_runs(K, args):
+        """hold() of the wide-band kernel (also at K = 128, where banded_dp
+        routes to the register kernel), in both modes."""
+        return [hold(f"sw_banded_wide {mode}: Lq={args[0].shape[0]} K={K} "
+                     f"P={args[0].shape[1]}", cfg,
+                     lambda c: tsb._launch("sw_banded_wide", c, K, *args),
                      lambda c: tsb.banded_tile_torch(c, K, *args))
                 for mode, cfg in modes]
 
-    # (runs, work) of each banded entry; bounds once the probe has run
-    banded = {}
-    K, lq, P = 64, 128, 33792           # the fused stage's main-path shape
-    args = [torch.from_numpy(a).to(dev)
-            for a in banded_problems(contigs, 5, P, K, lq)]
-    banded["sw_banded"] = (banded_runs("sw_banded", K, args),
-                           banded_work(args, K))
-    # K = 128 (--dpad 16-31), where the register kernel spills: the wrapper
-    # routes it there; the wide-band kernel is timed beside it
-    args = [torch.from_numpy(a).to(dev)
-            for a in banded_problems(contigs, 9, P, 128, lq)]
-    for name in ("sw_banded", "sw_banded_wide"):
-        banded[f"{name} k128"] = (
-            banded_runs(f"{name} at K=128", 128, args, name),
-            banded_work(args, 128))
-    # the wide-band kernel at the bands of --dpad 32..127 (Lq of 100 bp
-    # reads, rows padded to 128); the first, K = 256 e2e, is the one
-    # reported
-    lq, P = 128, 4096
-    runs, work = [], None
+    def inputs(seed, P, K, lq):
+        arrs = bench_banded.banded_inputs(seed, P, K, lq, chrom=contigs[0])
+        return arrs, [torch.from_numpy(a).to(dev) for a in arrs]
+
+    # the wide-band kernel (runs, e2e lens, K, lq), bounds once the probe
+    # has run: at K = 128 (--dpad 16-31, where banded_dp routes to the
+    # register kernel, timed beside it below), and at the bands of --dpad
+    # 32..127 (Lq of 100 bp reads, rows padded to 128); K = 256 e2e is the
+    # one reported
+    lq, P = 128, 33792
+    arrs, args = inputs(9, P, 128, lq)
+    wide = {"k128": (wide_runs(128, args), arrs[2], 128, lq)}
+    P = 4096
+    runs = []
     for K in (256, 512):
-        args = [torch.from_numpy(a).to(dev)
-                for a in banded_problems(contigs, 7, P, K, lq)]
-        runs += banded_runs("sw_banded_wide", K, args)
-        work = work or banded_work(args, K)
-    banded["sw_banded_wide"] = (runs, work)
+        arrs, args = inputs(7, P, K, lq)
+        runs += wide_runs(K, args)
+        if K == 256:
+            lens256 = arrs[2]
+    wide["main"] = (runs, lens256, 256, lq)
 
     # the ALU-ceiling probe at the DP microbench's shape, after the banded
     # kernels have run the card up to its clocks: its rate is the int32
@@ -409,11 +390,73 @@ def phase_kernels(contigs):
         summary([run], (n_ops, 0), ceiling), ceiling_ops_per_s=ceiling,
         bound_note="the probe's own time: it measures the int32 ceiling "
                    "that the other kernels' bounds divide by")}
-    bs = {k: summary(r, w, ceiling) for k, (r, w) in banded.items()}
-    for name in ("sw_banded", "sw_banded_wide"):
-        out[name] = dict(bs[name], k128=bs[f"{name} k128"])
-        out[name]["max_abs_err"] = max(bs[name]["max_abs_err"],
-                                       bs[f"{name} k128"]["max_abs_err"])
+    ws = {}
+    for key, (runs, lens, K, lq) in wide.items():
+        b_ms, b_by = bench_banded.banded_bound(lens, lq, K, False, ceiling)
+        ws[key] = dict(max_abs_err=max(r[0] for r in runs), ms=runs[0][1],
+                       plain_ms=runs[0][2], bound_ms=b_ms, bound_by=b_by,
+                       frac_of_bound=b_ms / runs[0][1])
+    out["sw_banded_wide"] = dict(ws["main"], k128=ws["k128"])
+    out["sw_banded_wide"]["max_abs_err"] = max(w["max_abs_err"]
+                                               for w in ws.values())
+
+    # the register kernel at bench_banded's shapes (the fused stage's
+    # P = 33792, Lq = 128: K = 64 with 4 in 5 problems of length 128, K =
+    # 64 with every length 100, the main path's mix, K = 32 and K = 128),
+    # e2e and local; K = 64 e2e at the first mix is the one reported
+    brows = bench_banded.measure(dev, ceiling, reps=5, plain_reps=3,
+                                 chrom=contigs[0])
+    for r in brows:
+        log(f"sw_banded {r['shape']} {r['mode']}: Lq={r['lq']} K={r['K']} "
+            f"P={r['P']} max_abs_err={r['max_abs_err']} kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['frac_of_bound']:.4f} of bound")
+    # the SASS of its row loop (the gap rows' loop, the largest)
+    loop = {}
+    for K in (32, 64, 128):
+        for local in (False, True):
+            n, mix = kernels.loop_mix(f"banded_kernelILi{K}ELb{int(local)}E")
+            loop[f"K{K}{'_local' if local else ''}"] = n / K
+            log(f"banded kernel row loop, K = {K}, "
+                f"{'local' if local else 'e2e'} (SASS): {n} instructions, "
+                f"{n / K:.2f} a cell {mix}")
+    # and exact on the edge tile of tests/torch_tiles.py (P = 129, lengths
+    # from < 0 to past Lq, penalties past the byte scores' range)
+    edge_err = 0
+    for K in (32, 64, 128):
+        edge = [torch.from_numpy(a).to(dev)
+                for a in banded_edge_tile(5 * K, 40, K)]
+        for name, kw in dict(CFGS, large_scores=LARGE_SCORE_CFG).items():
+            cfg = tsw.SwConfig(**kw)
+            got = tsb.banded_dp(cfg, K, *edge)
+            want = tsb.banded_tile_torch(cfg, K, *edge)
+            edge_err = max([edge_err] + [int((g - w).abs().max())
+                                         for g, w in zip(got, want)])
+    log(f"sw_banded edge tile, K = 32, 64, 128, {len(CFGS) + 1} scorings: "
+        f"max_abs_err={edge_err}")
+    main = brows[0]
+    out["sw_banded"] = dict(
+        max_abs_err=max([edge_err] + [r["max_abs_err"] for r in brows]),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "frac_of_bound")}, shapes=brows,
+        row_loop_instructions_per_cell=loop)
+    # the general kernel at the K = 64 shape: a match bonus past a byte
+    # sends every problem to it, so the call launches it alone
+    P, K, lq = 33792, 64, 128
+    arrs, args = inputs(5, P, K, lq)
+    run = hold(f"sw_banded_general local, ma = {LARGE_SCORE_CFG['ma']}: "
+               f"Lq={lq} K={K} P={P}", tsw.SwConfig(**LARGE_SCORE_CFG),
+               lambda c: tsb.banded_dp(c, K, *args),
+               lambda c: tsb.banded_tile_torch(c, K, *args))
+    fast = next(r for r in brows if r["shape"] == "k64" and
+                r["mode"] == "local")
+    log(f"  beside the register kernel at this shape, local: "
+        f"{fast['ms']:.4f} ms")
+    b_ms, b_by = bench_banded.banded_bound(arrs[2], lq, K, True, ceiling)
+    out["sw_banded_general"] = dict(
+        max_abs_err=max(run[0], edge_err), ms=run[1], plain_ms=run[2],
+        bound_ms=b_ms, bound_by=b_by, frac_of_bound=b_ms / run[1])
 
     # the rectangle kernel at bench_rect's three shapes, e2e and local; the
     # unpaired path's shape (P = 210) is the one reported
@@ -492,24 +535,29 @@ def profile_device(fn):
 
 
 def device_shares(label, prof, n_batches):
-    """Log and return the rect kernel's launches and share of device time,
-    and the device busy share, from profile_device's result over
-    n_batches batches."""
+    """Log and return, from profile_device's result over n_batches batches,
+    the device busy share and, for each kernel of SHARE_SYMBOLS, its
+    launches, device ms, ms a launch and share of device time."""
     wall, per = prof
     total = sum(us for _, us in per.values())
     if total == 0:
         log(f"{label}: device time not measured (the profiler saw no "
             f"device activity)")
         return None
-    n = sum(c for k, (c, _) in per.items() if RECT_SYMBOL in k)
-    rect = sum(us for k, (_, us) in per.items() if RECT_SYMBOL in k)
     out = dict(batches=n_batches, wall_ms=wall, device_ms=total / 1e3,
-               busy_share=total / 1e3 / wall, rect_launches=n,
-               rect_ms=rect / 1e3, rect_share=rect / total)
-    log(f"{label}, {n_batches} batches under torch.profiler: the rect "
-        f"kernel {n} launches, {rect / 1e3:.4f} ms of device time, "
-        f"{rect / total:.4f} of it; device busy {total / 1e3:.1f} ms in "
-        f"{wall:.1f} ms of wall, a busy share of {out['busy_share']:.4f}")
+               busy_share=total / 1e3 / wall)
+    for key, sym in SHARE_SYMBOLS.items():
+        n = sum(c for k, (c, _) in per.items() if sym in k)
+        us = sum(t for k, (_, t) in per.items() if sym in k)
+        out.update({f"{key}_launches": n, f"{key}_ms": us / 1e3,
+                    f"{key}_ms_per_launch": us / 1e3 / max(n, 1),
+                    f"{key}_share": us / total})
+        log(f"{label}, {n_batches} batches under torch.profiler: the {key} "
+            f"kernel {n} launches, {us / 1e3:.4f} ms of device time "
+            f"({us / 1e3 / max(n, 1):.4f} ms a launch), {us / total:.4f} of "
+            f"it")
+    log(f"{label}: device busy {total / 1e3:.1f} ms in {wall:.1f} ms of "
+        f"wall, a busy share of {out['busy_share']:.4f}")
     top = sorted(per.items(), key=lambda kv: -kv[1][1])[:6]
     for name, (c, us) in top:
         log(f"  {us / total:.4f} {us / 1e3:9.3f} ms {c:6d}x {name[:90]}")
@@ -581,7 +629,7 @@ def phase_main(idx, contigs, local=True):
     shares = device_shares("main path (e2e)", prof, PROFILED)
     if frac < ORIGIN_MIN_E2E:
         raise RuntimeError(f"origin fraction {frac:.4f} < {ORIGIN_MIN_E2E}")
-    for name in ("sw_banded", "sw"):
+    for name in ("sw_banded", "sw_banded_general", "sw"):
         if launches[name] == 0:
             raise RuntimeError(f"the main path never launched {name}")
     if not local:
@@ -679,7 +727,7 @@ def phase_paired(pidx, chroms):
     if frac < PAIR_ORIGIN_MIN:
         raise RuntimeError(f"pair origin fraction {frac:.4f} < "
                            f"{PAIR_ORIGIN_MIN}")
-    for name in ("sw_banded", "sw"):
+    for name in ("sw_banded", "sw_banded_general", "sw"):
         if launches[name] == 0:
             raise RuntimeError(f"the paired path never launched {name}")
     return launches, dict(pairs_per_s=pps, origin=frac, device=shares)
@@ -887,18 +935,19 @@ def main(argv=None):
     # banded and rectangle kernels (the paired path is checked above), the
     # --dpad 32 batch for the wide-band kernel, the DP microbench for the
     # probe
-    path_launches = dict(sw_banded=launches["sw_banded"], sw=launches["sw"],
+    path_launches = dict(sw_banded=launches["sw_banded"],
+                         sw_banded_general=launches["sw_banded_general"],
+                         sw=launches["sw"],
                          sw_banded_wide=wide_launches["sw_banded_wide"],
                          alu_probe=dp_launches["alu_probe"])
     log(f"launches on the paired path: {pe_launches}")
     log(json.dumps({"paths": {"unpaired": main_res, "paired": pe_res}}))
     # no PyTorch call computes any of these functions: library_ms is null
     kern = [dict(name=name, route="cuda",
-                 source=f"bowtie2_server_tpu_torch/ops/csrc/{name}.cu",
-                 replaces=KERNEL_TPU_SOURCES[name],
-                 launches=path_launches[name], library_ms=None,
+                 source=f"bowtie2_server_tpu_torch/ops/csrc/{src}",
+                 replaces=tpu, launches=path_launches[name], library_ms=None,
                  **times[name])
-            for name in ("sw_banded", "sw_banded_wide", "sw", "alu_probe")]
+            for name, (src, tpu) in KERNEL_SOURCES.items()]
     log(f"all phases passed in {time.time() - t_all:.1f} s")
     log(card_line() or card)
     log(json.dumps({"kernels": kern}))

@@ -13,7 +13,8 @@ torch = pytest.importorskip("torch")
 from bowtie2_server_tpu_torch.ops import alu_probe, kernels  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw as tsw  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw_banded as tsb  # noqa: E402
-from torch_tiles import (CFGS, RECT_CFGS, banded_tile, rect_tie_tile,  # noqa
+from torch_tiles import (CFGS, RECT_CFGS, LARGE_SCORE_CFG,  # noqa: E402
+                         banded_edge_tile, banded_tile, rect_tie_tile,
                          rect_tile)
 
 
@@ -24,18 +25,28 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# "edges": banded_edge_tile, P = 129 (a partial warp and block), Lq = 40,
+# lengths from < 0 to past Lq, penalties past the int8 edge of the register
+# kernel's byte scores (those problems, and every problem under
+# LARGE_SCORE_CFG, take its general kernel)
+@pytest.mark.parametrize("tile", ["planted", "edges"])
 @pytest.mark.parametrize("K", tsb.KERNEL_BANDS)
-@pytest.mark.parametrize("name", list(CFGS))
-def test_banded_kernel_equals_plain(name, K, cuda_device):
+@pytest.mark.parametrize("name", list(CFGS) + ["large_scores"])
+def test_banded_kernel_equals_plain(name, K, tile, cuda_device):
     """The register kernel (K <= 128) and the wide-band kernel (above)."""
-    args = [torch.from_numpy(a).to(cuda_device)
-            for a in banded_tile(3 * K, 100, K)]
-    cfg = tsw.SwConfig(**CFGS[name])
+    arrs = (banded_tile(3 * K, 100, K) if tile == "planted"
+            else banded_edge_tile(5 * K, 40, K))
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrs]
+    cfg = tsw.SwConfig(**(LARGE_SCORE_CFG if name == "large_scores"
+                          else CFGS[name]))
     which = "sw_banded" if K <= tsb.REGISTER_BAND_MAX else "sw_banded_wide"
     n0 = kernels.LAUNCHES[which]
+    g0 = kernels.LAUNCHES["sw_banded_general"]
     got = tsb.banded_dp(cfg, K, *args)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[which] == n0 + 1
+    # the register kernel's call launches its general kernel too
+    assert kernels.LAUNCHES["sw_banded_general"] == g0 + (which == "sw_banded")
     want = tsb.banded_tile_torch(cfg, K, *args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -15,7 +15,8 @@ from bowtie2_server_tpu.ops import sw as jsw  # noqa: E402
 from bowtie2_server_tpu.ops import sw_banded as jsb  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw_banded as tsb  # noqa: E402
 from bowtie2_server_tpu_torch.ops.sw import SwConfig  # noqa: E402
-from torch_tiles import CFGS, P, banded_tile as make_tile  # noqa: E402
+from torch_tiles import (CFGS, P, LARGE_SCORE_CFG,  # noqa: E402
+                         banded_edge_tile, banded_tile as make_tile)
 
 
 @pytest.mark.parametrize("K", [32, 64])
@@ -91,3 +92,30 @@ def test_sw_banded_batch_needs_a_device():
     with pytest.raises(TypeError, match="device"):
         tsb.sw_banded_batch(rd.T.astype(np.uint8), lens, mm.T,
                             band.T.astype(np.uint8), SwConfig(), K=32)
+
+
+@pytest.mark.parametrize("K", [32, 64, 128])
+@pytest.mark.parametrize("name", list(CFGS) + ["large_scores"])
+def test_banded_edge_tile_torch_equals_jax(name, K):
+    """The edge tile the CUDA kernel is held to on the card (P = 129: a
+    partial warp and block; lengths from < 0 to past Lq; all-N rows; ties;
+    penalties at the int8 edge): the plain torch version equals the JAX XLA
+    engine on every problem and the Pallas kernel (interpreted on the CPU)
+    on the first tile of 128, so the tile's expectations are the
+    reference's."""
+    lq = 40
+    rd, mm, lens, band = banded_edge_tile(5 * K, lq, K)
+    kw = LARGE_SCORE_CFG if name == "large_scores" else CFGS[name]
+    jcfg, tcfg = jsw.SwConfig(**kw), SwConfig(**kw)
+    want = [np.asarray(x) for x in jsb._banded_tile_xla(
+        jcfg, K, jnp.asarray(rd), jnp.asarray(mm), jnp.asarray(lens),
+        jnp.asarray(band))]
+    call = jsb._pallas_banded(jcfg, K, lq, 1, True)
+    want_pl = [np.asarray(x)[0] for x in call(
+        jnp.asarray(rd[:, :P]), jnp.asarray(mm[:, :P]),
+        jnp.asarray(lens[None, :P]), jnp.asarray(band[:, :P]))]
+    got = tsb.banded_dp(tcfg, K, *(torch.from_numpy(a) for a in
+                                   (rd, mm, lens, band)))
+    for w_x, w_p, g in zip(want, want_pl, got):
+        np.testing.assert_array_equal(w_x[:P], w_p)
+        np.testing.assert_array_equal(g.numpy(), w_x)

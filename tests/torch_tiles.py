@@ -54,6 +54,60 @@ def banded_tile(seed, lq, K):
     return [np.ascontiguousarray(a, np.int32) for a in (rd, mm, lens, band)]
 
 
+# a scoring the byte-table kernel does not take (ma above 127): every
+# problem goes to the general kernel of ops/csrc/sw_banded.cu
+LARGE_SCORE_CFG = dict(ma=150, npen=2, local=True)
+
+# lengths of the second warp of banded_edge_tile (which adds Lq-1, Lq and
+# Lq+3): empty, one row, the gap barriers of CFGS (0, 4, 10) and twice
+# them, and below zero
+EDGE_LENS = (0, 1, 4, 8, 10, 20, -1, -2, 2, 3, 5)
+
+
+def banded_edge_tile(seed, lq, K, p=P + 1):
+    """[rows, p] int32 inputs at the edges of the banded kernels: per warp
+    of 32 problems, lengths all Lq (warp 0), the EDGE_LENS with Lq-1, Lq
+    and Lq+3 (warp 1), all equal and short (warp 2), random (warp 3), and
+    problem 128 alone in its warp and block (p = 129); all-N read rows and
+    all-N reads and bands; homopolymer and tandem-repeat ties; and
+    mismatch penalties at and past the int8 edge (128 and -127 fit a
+    signed byte as -mm, 129 and -128 do not)."""
+    rng = np.random.default_rng(seed)
+    C = K // 2
+    band = rng.integers(0, 4, (lq + K, p))
+    rd = band[C : C + lq].copy()
+    mm = rng.integers(2, 7, (lq, p))
+    for q in range(p):
+        kind = q % 8
+        for _ in range(q % 3):
+            rd[rng.integers(0, lq), q] = rng.integers(0, 4)
+        if kind == 1:      # homopolymer: equal scores along every row
+            band[:, q] = 1
+            rd[:, q] = 1
+            rd[rng.integers(0, lq), q] = 2
+        elif kind == 2:    # tandem repeat of a 2-3 base unit
+            unit = rng.integers(0, 4, 2 + q % 2)
+            band[:, q] = np.resize(unit, lq + K)
+            rd[:, q] = band[C + 1 : C + 1 + lq, q]
+        elif kind == 3:    # a run of all-N read rows, N in the band
+            a = int(rng.integers(0, lq))
+            rd[a : a + 5, q] = 5
+            band[rng.integers(0, lq + K, 4), q] = 4
+        elif kind == 4:    # an all-N read
+            rd[:, q] = 5
+        elif kind == 5:    # an all-N band
+            band[:, q] = 4
+        elif kind == 6:    # penalties at the int8 edge: still in range
+            mm[rng.integers(0, lq, 3), q] = (128, -127, 128)
+        elif kind == 7 and q % 16 == 7:   # and past it, in one row
+            mm[rng.integers(0, lq), q] = 129 if q % 32 == 7 else -128
+    lens = np.full(p, lq)
+    lens[32:64] = np.resize(list(EDGE_LENS) + [lq - 1, lq, lq + 3], 32)
+    lens[64:96] = lq // 2 + 1
+    lens[96:128] = rng.integers(1, lq + 1, 32)
+    return [np.ascontiguousarray(a, np.int32) for a in (rd, mm, lens, band)]
+
+
 def rect_tile(seed, lq_pad, lc, p=P):
     """[rows, p] int32 inputs: reads planted in their windows with
     substitutions and indels, N codes, ragged read and window lengths."""
