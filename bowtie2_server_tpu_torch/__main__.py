@@ -3,11 +3,14 @@
 Usage:
   python -m bowtie2_server_tpu_torch build <ref.fa> <index_base>
   python -m bowtie2_server_tpu_torch align -x <index_base> -U <reads.fq>
-         [-S out.sam] [--end-to-end | --local] [--seed N] [--device cuda]
+         [-S out.sam] [--end-to-end | --local] [--seed N] [SEARCH]
+         [--device cuda]
   python -m bowtie2_server_tpu_torch align -x <index_base> -1 <m1.fq>
          -2 <m2.fq> [-S out.sam] [-I minins] [-X maxins] [--fr | --rf | --ff]
          [--no-mixed] [--no-discordant] [--end-to-end | --local] [--seed N]
-         [--device cuda]
+         [SEARCH] [--device cuda]
+  SEARCH: [-N 0|1] [-L seedlen] [-i func] [-k N | -a] [--no-1mm-upfront]
+          [--no-exact-upfront]
 
 `align` writes the same SAM records and alignment summary as
 `python -m bowtie2_server_tpu align` with the same options. Every other
@@ -35,12 +38,35 @@ def cmd_build(args):
           f"in {time.time()-t0:.1f}s", file=sys.stderr)
 
 
+def search_policy(args):
+    """(Scoring, SearchPolicy) of the preset and the search options, mapped
+    as the JAX CLI maps them."""
+    from .align.pipeline import ALL_HITS, SearchPolicy
+    from .utils.presets import preset_params
+    from .utils.simple_func import SimpleFunc
+    sc, polkw = preset_params(None, args.local)
+    if args.exact_upfront is not None:
+        polkw["no_exact_upfront"] = not args.exact_upfront
+    if args.mm1_upfront is not None:
+        polkw["no_1mm_upfront"] = not args.mm1_upfront
+    if args.seedlen:
+        polkw["seed_len"] = args.seedlen
+    if args.ival:
+        polkw["interval"] = SimpleFunc.parse(args.ival)
+    # -a: unbounded reporting (ref: ReportingParams::allHits); -k/-a turn
+    # the -M sampling off (ref: bt2_search.cpp:1246-1311)
+    khits = ALL_HITS if args.all_hits else args.khits
+    if args.khits > 1 or args.all_hits:
+        polkw["mhits"], polkw["msample"] = 0, False
+    if args.seed_mms:
+        polkw["n_seed_mms"] = args.seed_mms
+    return sc, SearchPolicy(khits=khits, seed=args.seed, **polkw)
+
+
 def cmd_align(args):
-    from .align.pipeline import SearchPolicy
     from .index.fm import FmIndex
     from .io.metrics import AlnSummary
     from .io.sam import sam_header
-    from .utils.presets import preset_params
 
     paired = args.m1 is not None or args.m2 is not None
     if args.index is None or (args.U is None) == (not paired) or \
@@ -48,8 +74,7 @@ def cmd_align(args):
         sys.exit("Error: align needs -x <index_base> and either -U "
                  "<reads.fq> or -1 <m1.fq> -2 <m2.fq>")
     idx = FmIndex.load(args.index)
-    sc, polkw = preset_params(None, args.local)
-    pol = SearchPolicy(khits=1, seed=args.seed, **polkw)
+    sc, pol = search_policy(args)
     names = [n.split()[0] if n.split() else n for n in idx.ref_names]
     out = open(args.S, "w") if args.S else sys.stdout
     out.write(sam_header(names, idx.ref_lens, " ".join(sys.argv)))
@@ -103,8 +128,8 @@ def _align_paired(args, idx, sc, pol, names, out, summ):
 
 def _align_unpaired(args, idx, sc, pol, names, out, summ):
     """-U: batches through the UnpairedAligner, three in flight; fast-path
-    batches are formatted by the native SAM writer. Returns (reads,
-    device)."""
+    batches are formatted by the native SAM writer; under -k/-a each read's
+    secondary records follow its primary. Returns (reads, device)."""
     from .align.pipeline import UnpairedAligner
     from .io.fastq import iter_fastq, prefetch
     from .io.sam import sam_format_batch_native, sam_record
@@ -134,11 +159,13 @@ def _align_unpaired(args, idx, sc, pol, names, out, summ):
             else:
                 out.write(blob.decode())
             summ.add_unpaired_soa(recs)
+            n += len(recs)
         else:
             for r in recs:
                 out.write(sam_record(r, names) + "\n")
-                summ.add_unpaired(r)
-        n += len(recs)
+                if not r.secondary:
+                    summ.add_unpaired(r)
+                    n += 1
     return n, al.device
 
 
@@ -174,6 +201,23 @@ def make_parser():
     pa.add_argument("--no-mixed", dest="no_mixed", action="store_true")
     pa.add_argument("--no-discordant", dest="no_discordant",
                     action="store_true")
+    pa.add_argument("-N", "--seedmms", dest="seed_mms", type=int, default=0,
+                    choices=(0, 1),
+                    help="mismatches allowed inside a seed "
+                    "(ref: searchSeedBi, aligner_seed.cpp:668)")
+    pa.add_argument("-L", "--seedlen", dest="seedlen", type=int,
+                    default=None)
+    pa.add_argument("-i", "--seedival", dest="ival", default=None)
+    pa.add_argument("-k", "--khits", dest="khits", type=int, default=1)
+    pa.add_argument("-a", "--all", dest="all_hits", action="store_true")
+    pa.add_argument("--no-exact-upfront", dest="exact_upfront",
+                    action="store_false", default=None,
+                    help="skip the up-front exact full-read sweep "
+                    "(ref: doExactUpFront, bt2_search.cpp:3454)")
+    pa.add_argument("--no-1mm-upfront", dest="mm1_upfront",
+                    action="store_false", default=None,
+                    help="skip the up-front 1-mismatch end-to-end search "
+                    "(ref: do1mmUpFront, bt2_search.cpp:3634)")
     pa.add_argument("--device", default="cuda",
                     help="torch device the pipeline runs on (default cuda)")
     pa.set_defaults(fn=cmd_align)

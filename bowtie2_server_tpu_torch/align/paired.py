@@ -154,7 +154,10 @@ class PairedRecs:
 
     def n_concordant(self) -> int:
         """Concordant (proper) pair count without materializing records:
-        the fast pairs' column store plus the slow pairs' records."""
+        the fast pairs' column store plus the slow pairs' records (a list of
+        records where the host path made them)."""
+        if isinstance(self.r1, list):
+            return sum(bool(rec.proper) for rec in self.r1)
         soa = self.r1.soa
         filled = soa.filled if soa is not None and soa.pair is not None \
             else None
@@ -326,8 +329,8 @@ class PairedAligner:
             return zero, None, None
         out_sc, out_ci, singles, offs, fws, lens = [], [], [], [], [], []
         for st in (st1, st2):
-            res = st.sel
-            if len(res.c_read) == 0:
+            res = getattr(st, "sel", None)   # None: a host-path state
+            if res is None or len(res.c_read) == 0:
                 return zero, None, None
             NEGH = NEG_INF // 2
             has = res.best_ci >= 0
@@ -454,9 +457,14 @@ class PairedAligner:
         b1, b2, both_ok, h1, h2 = handle
         st1 = self.up.collect_wait(h1)
         skip2 = both_ok & st1.seeds_failed_r0
-        st2 = self.up.collect_wait(h2)
-        if skip2.any():
-            self.up.apply_seed_skip(st2, skip2)
+        if h2[0] == "host":
+            # the host-path collect is lazy (runs at wait): inject the
+            # dispatch-time seed_skip it would have received
+            st2 = self.up.collect_wait(("host", h2[1], h2[2], skip2))
+        else:
+            st2 = self.up.collect_wait(h2)
+            if skip2.any():
+                self.up.apply_seed_skip(st2, skip2)
         B = st1.B
         # fast-pair shortcut: both mates have exactly one (ungapped,
         # interior, untied) candidate and the pair classifies concordant on

@@ -1,15 +1,15 @@
 """The staged alignment pipeline (ref: bt2_search.cpp:3050
 multiseedSearchWorker, aligner_sw_driver.cpp:756 SwDriver::extendSeeds).
-Port of bowtie2_server_tpu/align/pipeline.py: the UnpairedAligner fast
-path, which runs the fused device pipeline of align/candgen.py on the
-device given at construction, and the parts the paired aligner
+Port of bowtie2_server_tpu/align/pipeline.py: the UnpairedAligner, which
+runs the fused device pipeline of align/candgen.py on the device given at
+construction, and its host path (`_collect_host`: -a, -k above 1024, an
+index without its mirror direction, and a batch still overflowing after
+the capacity escalation), which drives the FM ops of ops/fm.py and the DP
+kernels batch-wise from the host; and the parts the paired aligner
 (align/paired.py) builds on: candidate appends for mate rescue, the
 concordant-pair columns of FastSoA, `revcomp_batch`, `compute_filtered`
 and `apply_seed_skip` (not `ConcatRecs`: only the big-index batch halving
-of ROADMAP Queue A item 12 builds one). The reference package's host path
-(`_collect_host`: -a, -k above 1024, overflow after capacity escalation)
-is not ported yet and raises NotImplementedError (ROADMAP Queue A item
-11).
+of ROADMAP Queue A item 12 builds one).
 
 Where the reference advances one read at a time through
 filters -> exact sweep -> 1mm -> seed rounds -> extend, this pipeline
@@ -28,11 +28,11 @@ advances a whole batch through fixed-shape stages:
                                                     (host)
 
 Differences from the reference flagged for later parity work: no streak
-early-stopping (we always search every stage — more sensitive, not less),
-and no within-seed mismatches (-N 0 only, the default). Equal-score ties
-break via the per-read generator (utils/rng.py): same seed derivation and
-LCG as the reference, fresh stream at selection time (the reference's
-stream position at selection depends on its sequential search history).
+early-stopping (we always search every stage — more sensitive, not less).
+Equal-score ties break via the per-read generator (utils/rng.py): same seed
+derivation and LCG as the reference, fresh stream at selection time (the
+reference's stream position at selection depends on its sequential search
+history).
 """
 from __future__ import annotations
 
@@ -44,8 +44,9 @@ import torch
 
 from ..index.fm import FmIndex
 from ..io.fastq import ReadBatch
+from ..ops import fm as dfm
 from ..ops.sw import NEG_INF, SwConfig, sw_align_batch
-from ..ops.sw_banded import banded_traceback
+from ..ops.sw_banded import banded_traceback, sw_banded_batch
 from ..utils import dna
 from ..utils.scoring import Scoring
 from ..utils.simple_func import SimpleFunc, SQRT
@@ -462,10 +463,10 @@ class UnpairedAligner:
     def __init__(self, index: FmIndex, scoring: Scoring | None = None,
                  policy: SearchPolicy | None = None, *, device,
                  nofw: bool = False, norc: bool = False, mesh=None):
-        """device: where the fused pipeline runs ('cpu' runs the plain
-        torch versions of the kernels, 'cuda' the CUDA kernels). Big
-        indexes and meshes are not ported yet: CandGen.dispatch raises
-        NotImplementedError."""
+        """device: where the device work runs ('cpu' runs the plain torch
+        versions of the kernels, 'cuda' the CUDA kernels). Big indexes
+        (ops/fm.to_device) and meshes (CandGen.dispatch) are not ported
+        yet: they raise NotImplementedError."""
         self.nofw = nofw
         self.norc = norc
         self.idx = index
@@ -481,16 +482,42 @@ class UnpairedAligner:
             rdg_open=self.sc.read_gap_open, rdg_ext=self.sc.read_gap_extend,
             rfg_open=self.sc.ref_gap_open, rfg_ext=self.sc.ref_gap_extend,
             gapbar=self.sc.gapbar, local=self.sc.local)
-        # fused device pipeline (align/candgen.py) — the fast path. The
-        # reference package takes its host path when the index has no
-        # mirror direction; that path is not ported.
-        if index.mirror is None:
-            raise NotImplementedError(
-                "an index without its mirror direction takes the host path, "
-                "not ported yet (ROADMAP Queue A item 11)")
-        self.candgen = CandGen(index, self.pol, self.sw_cfg, self.band,
-                               self.device, mesh=mesh)
+        self.dev = dfm.to_device(index.fw, self.device)
+        self.dev_mirror = (dfm.to_device(index.mirror, self.device)
+                           if index.mirror is not None else None)
+        # fused device pipeline (align/candgen.py) — the fast path; an
+        # index without its mirror direction takes the host path
+        self.candgen = None
+        if self.dev_mirror is not None:
+            self.candgen = CandGen(self.dev, self.dev_mirror, index,
+                                   self.pol, self.sw_cfg, self.band,
+                                   self.device, mesh=mesh)
         self._rect_stream = None   # CUDA stream of the rect DPs (rect_stream)
+
+    # ---- seed schedule (ref: bt2_search.cpp:3848-3870, aligner_seed.cpp:498)
+
+    def seed_offsets(self, rdlen: int, roundi: int = 0,
+                     boost: bool = False, nrounds: int | None = None
+                     ) -> list[int]:
+        """Seed depths for one reseeding round (ref: bt2_search.cpp:3848-3870:
+        offset = interval*round/nrounds; aligner_seed.cpp:523-529: nseeds =
+        1 + (len-off-L)/interval when len-off > L). With boost (paired mode,
+        both mates unfiltered) the interval grows 20% (bt2_search.cpp:3394)."""
+        pol = self.pol
+        interval = max(1, pol.interval.f_int(rdlen))
+        if boost:
+            interval = max(1, int(interval * 1.2 + 0.5))
+        L = pol.seed_len
+        if interval <= roundi:
+            return []
+        nr = nrounds if nrounds is not None else pol.n_seed_rounds
+        off = (interval * roundi) // nr
+        if off > 0 and L + off > rdlen:
+            return []
+        nseeds = 1
+        if rdlen - off > L:
+            nseeds += (rdlen - off - L) // interval
+        return [off + i * interval for i in range(nseeds)]
 
     # ---- the batch pipeline ----
 
@@ -547,20 +574,20 @@ class UnpairedAligner:
             out.extend(extras)
         return out
 
-    # ---- collect: the fused device path ----
+    # ---- collect: fused device path with host fallback ----
 
     def collect(self, batch: ReadBatch, boost=None, seed_skip=None):
         return self.collect_wait(self.collect_async(batch, boost, seed_skip))
 
     def collect_async(self, batch: ReadBatch, boost=None, seed_skip=None):
-        """Dispatch the device-side search for a batch (non-blocking)."""
-        if self.pol.khits > _FUSED_KMAX:
+        """Dispatch the device-side search for a batch (non-blocking).
+        Returns a handle tagged "fused" or "host"; the host path runs at
+        collect_wait."""
+        if self.candgen is None or self.pol.khits > _FUSED_KMAX:
             # -a (and -k beyond _FUSED_KMAX) needs unbounded per-range
-            # enumeration on the host path; -k up to _FUSED_KMAX runs
-            # fused with E scaled to k (CandGen.dispatch)
-            raise NotImplementedError(
-                "-a and -k above 1024 take the host path, not ported yet "
-                "(ROADMAP Queue A item 11)")
+            # enumeration — the host path chunks its resolves; -k up to
+            # _FUSED_KMAX runs fused with E scaled to k (CandGen.dispatch)
+            return ("host", batch, boost, seed_skip)
         lens = batch.lens
         f = self._filters(batch)
         nceil, minsc, perfect = f["nceil"], f["minsc"], f["perfect"]
@@ -577,10 +604,13 @@ class UnpairedAligner:
         meta = dict(lens=lens, filtered=filtered, minsc=minsc,
                     perfect=perfect, nceil=nceil, seed_skip=seed_skip,
                     yf_codes=yf_codes)
-        return (batch, boost, seed_skip, h, meta)
+        return ("fused", batch, boost, seed_skip, h, meta)
 
     def collect_wait(self, handle):
-        batch, boost, seed_skip, h, meta = handle
+        if handle[0] == "host":
+            _, batch, boost, seed_skip = handle
+            return self._collect_host(batch, boost, seed_skip)
+        _, batch, boost, seed_skip, h, meta = handle
         res = self.candgen.fetch(h)
         if res.overflow:
             # capacity escalation: re-run the same batch with 2x, then
@@ -609,10 +639,7 @@ class UnpairedAligner:
                 if not res.overflow:
                     break
             if res.overflow:
-                raise NotImplementedError(
-                    "candidate capacity still exceeded at 4x: the host "
-                    "path that takes over is not ported yet (ROADMAP "
-                    "Queue A item 11)")
+                return self._collect_host(batch, boost, seed_skip)
         return self._build_state(batch, res, meta)
 
     def _build_state(self, batch: ReadBatch, res, meta):
@@ -715,8 +742,17 @@ class UnpairedAligner:
         <= 1 substitution (oneMmSearch's set); recompute the per-read
         best/secbest selection exactly as the device does (max score ->
         leftmost diag -> fw preferred -> largest candidate index)."""
-        res = st.sel
+        res = getattr(st, "sel", None)
         mask = np.asarray(mask, bool)
+        if res is None:
+            # host-path state: candidates carry no per-candidate nm/ungapped
+            # detail; keep only perfect-score hits (st.best is the only
+            # selection input downstream)
+            for i in np.nonzero(mask)[0]:
+                for ci in st.by_read.get(int(i), []):
+                    if st.best[ci] != st.perfect[i]:
+                        st.best[ci] = NEG_INF
+            return
         for i in np.nonzero(mask)[0]:
             i = int(i)
             ids = np.asarray(st.by_read.get(i, []), np.int64)
@@ -958,6 +994,366 @@ class UnpairedAligner:
             return self.pol.max_sa_elts
         return int(min(k + 1, _RESOLVE_CHUNK))
 
+    def _collect_host(self, batch: ReadBatch, boost=None, seed_skip=None):
+        """Run every candidate-generation and DP stage from the host, batch
+        by batch of device calls; return the per-batch state (candidates
+        with scores and finish info) without committing a selection —
+        shared by the unpaired and paired aligners.
+
+        boost[i]: paired-mode interval boost + round halving (ref:
+        bt2_search.cpp:3392-3431 when filt[0] && filt[1]).
+        seed_skip[i]: skip the seed stage (the other mate's round-0 seeds
+        failed first — ref: bt2_search.cpp:3888/3909)."""
+        from types import SimpleNamespace
+        B, L = batch.seqs.shape
+        lens = batch.lens
+        rcap = self._resolve_cap()
+        fw_seqs, fw_quals = batch.seqs, batch.quals
+        rc_seqs, rc_quals = revcomp_batch(fw_seqs, fw_quals, lens)
+        mmtab = self.sc.mm_penalties()
+
+        recs = [AlnRec(name=batch.names[i], aligned=False) for i in range(B)]
+        for i in range(B):
+            recs[i].seq = recs[i].orig_seq = batch.raw_seq[i]
+            recs[i].qual = recs[i].orig_qual = batch.raw_qual[i]
+            if batch.comments is not None:
+                recs[i].comment = batch.comments[i]
+            if batch.origs is not None:
+                recs[i].orig_rec = batch.origs[i]
+            if getattr(batch, "bam_tags", None):
+                recs[i].preserved = batch.bam_tags[i]
+
+        # -- filters (ref: bt2_search.cpp:3323-3352) --
+        f = self._filters(batch)
+        nceil, minsc, perfect = f["nceil"], f["minsc"], f["perfect"]
+        filtered = f["len_bad"] | f["n_bad"] | f["sc_bad"]
+        for i in np.nonzero(filtered)[0]:
+            recs[i].filtered = True
+            # YF reason priority LN > NS > SC (ref: AlnFlags::printYF,
+            # aligner_result.cpp:1095-1100)
+            recs[i].yf = ("LN" if f["len_bad"][i] else
+                          "NS" if f["n_bad"][i] else "SC")
+
+        exact_mult = np.zeros(B, np.int64)  # exact hits (for secbest)
+        empty_state = SimpleNamespace(
+            B=B, recs=recs, cands=[], best=np.zeros(0, np.int64),
+            end_joined=np.zeros(0, np.int64), fin_info=[], by_read={},
+            read_arrays=None, lens=lens, minsc=minsc, perfect=perfect,
+            nceil=nceil, exact_mult=exact_mult, filtered=filtered,
+            seeds_failed_r0=np.zeros(B, bool), fw_seqs=fw_seqs)
+        active = ~filtered
+        if not active.any():
+            return empty_state
+
+        # -- candidate generation: (read, fw?, diag), diag = the joined
+        # position where the aligned-strand read starts --
+        cand = set()
+        # exact full-read sweep + 1-mismatch up front, fused (ref:
+        # aligner_seed.cpp:854 exactSweep, :973 oneMmSearch): the exact
+        # ranges fall out of the 1mm search's recorded pass; mismatches in
+        # the left half search the fw index, the right half the mirror
+        # index over the reversed patterns
+        both2 = np.concatenate([fw_seqs, rc_seqs])
+        lens2 = np.concatenate([lens, lens])
+        act2 = np.concatenate([active, active])
+        half2 = lens2 // 2
+        unbounded = self.pol.khits >= ALL_HITS
+
+        def add_fw_hits(r, top, bot):
+            if not len(r):
+                return
+            total = (bot - top).astype(np.int64)
+            base = np.zeros_like(total)
+            while True:
+                rem = total - base
+                act = np.nonzero(rem > 0)[0]
+                if not len(act):
+                    break
+                cnt = np.minimum(rem[act], rcap)
+                offs = dfm.sa_resolve(self.dev, top[act] + base[act], cnt,
+                                      rcap)
+                for s, ai in enumerate(act):
+                    i, is_fw = (int(r[ai]), True) if r[ai] < B else \
+                        (int(r[ai]) - B, False)
+                    for o in offs[s]:
+                        if o >= 0:
+                            cand.add((i, is_fw, int(o)))
+                base[act] += rcap
+                if not unbounded:
+                    # bounded modes truncate at the per-call cap; -a loops
+                    # until every range is enumerated (the reference's
+                    # unbounded -a, aln_sink.h:288)
+                    break
+
+        if self.dev_mirror is not None:
+            hits, (etop, ebot) = dfm.one_mm_branch_hits(
+                self.dev, both2, lens2, np.zeros(2 * B, np.int64),
+                np.where(act2, half2, 0), want_exact=True)
+        else:
+            hits = (np.zeros(0, np.int64),) * 4
+            etop, ebot = dfm.backward_search(self.dev, both2, lens2)
+
+        # exact hits (--no-exact-upfront drops the stage; seeds rediscover
+        # them, ref: doExactUpFront bt2_search.cpp:3454)
+        er = np.nonzero(act2 & (ebot > etop))[0]
+        for s in er:
+            exact_mult[int(s) % B] += int(ebot[s] - etop[s])
+        if not self.pol.no_exact_upfront:
+            add_fw_hits(er, etop[er], ebot[er])
+        # 1mm left-half hits (--no-1mm-upfront, ref: do1mmUpFront :3634)
+        if not self.pol.no_1mm_upfront:
+            add_fw_hits(hits[0], hits[2], hits[3])
+
+        if self.dev_mirror is not None and not self.pol.no_1mm_upfront:
+            n_text = self.idx.n
+            src = lens[:, None] - 1 - np.arange(L)[None, :]
+            valid_r = src >= 0
+            src_c = np.clip(src, 0, L - 1)
+            bidx = np.arange(B)[:, None]
+            rev2 = np.concatenate([
+                np.where(valid_r, fw_seqs[bidx, src_c], 5).astype(np.uint8),
+                np.where(valid_r, rc_seqs[bidx, src_c], 5).astype(np.uint8)])
+            r, _, top, bot = dfm.one_mm_branch_hits(
+                self.dev_mirror, rev2, lens2, np.zeros(2 * B, np.int64),
+                np.where(act2, lens2 - half2, 0))
+            if len(r):
+                offs = dfm.sa_resolve(self.dev_mirror, top,
+                                      np.minimum(bot - top, rcap), rcap)
+                for s in range(len(r)):
+                    i, is_fw = (int(r[s]), True) if r[s] < B else \
+                        (int(r[s]) - B, False)
+                    rl = int(lens[i])
+                    for o in offs[s]:
+                        if o >= 0:
+                            diag = n_text - int(o) - rl
+                            if diag > -rl:
+                                cand.add((i, is_fw, diag))
+
+        # seed rounds. Rounds past 0 run only for reads whose round-0 seeds
+        # were highly repetitive (avg hits/seed >= boost_thresh) (ref:
+        # bt2_search.cpp:4085-4089 seedBoostThresh, aligner_seed.h:821)
+        Lseed = self.pol.seed_len
+        boost = (np.zeros(B, bool) if boost is None
+                 else np.asarray(boost, bool))
+        half_rounds = -(-self.pol.n_seed_rounds // 2)
+        nrounds_arr = np.where(boost, half_rounds, self.pol.n_seed_rounds)
+        round_active = active.copy()
+        if seed_skip is not None:
+            round_active &= ~np.asarray(seed_skip, bool)
+        seeds_failed_r0 = np.zeros(B, bool)
+        for roundi in range(self.pol.n_seed_rounds):
+            round_active &= roundi < nrounds_arr
+            if not round_active.any():
+                break
+            # seeds grouped by read length; rc seeds are the revcomp of the
+            # SAME fw-read window [off, off+L) (ref: sstring.h:1519
+            # windowGetDna), i.e. rc-read position rl-off-L; seeds with an N
+            # fail to instantiate (ref: aligner_seed.cpp:583-586)
+            sr_parts, sf_parts, sd_parts, sp_parts = [], [], [], []
+            inst_count = np.zeros(B, np.int64)
+            for rl, bval in {(int(l), bool(bv)) for l, bv in
+                             zip(lens[round_active], boost[round_active])}:
+                grp = np.nonzero(round_active & (lens == rl)
+                                 & (boost == bval))[0]
+                offs = self.seed_offsets(rl, roundi, boost=bval,
+                                         nrounds=half_rounds if bval
+                                         else None)
+                sl = min(Lseed, rl)
+                for is_fw, seqs in ((True, fw_seqs), (False, rc_seqs)):
+                    for off in offs:
+                        start = off if is_fw else rl - off - sl
+                        block = seqs[grp, start : start + sl]
+                        ok = ~(block > 3).any(axis=1)
+                        g2 = grp[ok]
+                        if not len(g2):
+                            continue
+                        np.add.at(inst_count, g2, 1)
+                        pats = np.full((len(g2), Lseed), 5, np.uint8)
+                        pats[:, :sl] = block[ok]
+                        sr_parts.append(g2)
+                        sf_parts.append(np.full(len(g2), is_fw, bool))
+                        sd_parts.append(np.full(len(g2), start, np.int32))
+                        sp_parts.append(pats)
+            # reads with no instantiated seed are done (ref:
+            # bt2_search.cpp:3888-3893 "No seed hits! Done with this mate")
+            if roundi == 0:
+                seeds_failed_r0 |= round_active & (inst_count == 0)
+            round_active &= inst_count > 0
+            if not sr_parts:
+                break
+            seed_reads = np.concatenate(sr_parts)
+            seed_fw = np.concatenate(sf_parts)
+            seed_depth = np.concatenate(sd_parts)
+            seed_pat = np.concatenate(sp_parts)
+            slens = np.minimum(Lseed, lens[seed_reads]).astype(np.int32)
+            top, bot = dfm.backward_search(self.dev, seed_pat, slens)
+            offs = dfm.sa_resolve(self.dev, top, np.minimum(bot - top, rcap),
+                                  rcap)
+            # diag = off - depth; negative diagonals (the read overhanging
+            # the reference start) stay for the rectangle path
+            s_idx, e_idx = np.nonzero(offs >= 0)
+            diag_flat = offs[s_idx, e_idx] - seed_depth[s_idx]
+            keep = diag_flat > -lens[seed_reads[s_idx]]
+            cand.update(zip(seed_reads[s_idx[keep]].tolist(),
+                            seed_fw[s_idx[keep]].tolist(),
+                            diag_flat[keep].tolist()))
+
+            # -N 1: seeds aligning with exactly one in-seed substitution
+            # (ref: aligner_seed.cpp:668 searchSeedBi with one mismatch):
+            # left halves on the fw index, right halves on the mirror index
+            if self.pol.n_seed_mms >= 1 and self.dev_mirror is not None:
+                n_text = self.idx.n
+
+                def add_seed_1mm(dev, pats, his, mirror: bool):
+                    r, _, t1, b1 = dfm.one_mm_branch_hits(
+                        dev, pats, slens, np.zeros(len(pats), np.int64),
+                        his)
+                    if not len(r):
+                        return
+                    offs1 = dfm.sa_resolve(dev, t1, np.minimum(b1 - t1, rcap),
+                                           rcap)
+                    ri, ei = np.nonzero(offs1 >= 0)
+                    o1 = offs1[ri, ei]
+                    rr = r[ri].astype(np.int64)
+                    start1 = (n_text - o1 - slens[rr]) if mirror else o1
+                    dg = start1 - seed_depth[rr]
+                    kp = dg > -lens[seed_reads[rr]]
+                    cand.update(zip(seed_reads[rr[kp]].tolist(),
+                                    seed_fw[rr[kp]].tolist(),
+                                    dg[kp].tolist()))
+
+                half_s = (slens // 2).astype(np.int64)
+                add_seed_1mm(self.dev, seed_pat, half_s, mirror=False)
+                srcr = slens[:, None] - 1 - np.arange(Lseed)[None, :]
+                rev_pat = np.where(
+                    srcr >= 0,
+                    seed_pat[np.arange(len(seed_pat))[:, None],
+                             np.clip(srcr, 0, Lseed - 1)], 5).astype(np.uint8)
+                add_seed_1mm(self.dev_mirror, rev_pat, slens - half_s,
+                             mirror=True)
+            # the next round only for reads whose hits were highly
+            # repetitive; no hit ends the read (ref: bt2_search.cpp:3909,
+            # :4086)
+            hits_n = (bot - top).astype(np.int64)
+            nonz = np.bincount(seed_reads, weights=(hits_n > 0), minlength=B)
+            tot = np.bincount(seed_reads, weights=hits_n, minlength=B)
+            if roundi == 0:
+                seeds_failed_r0 |= round_active & (nonz == 0)
+            round_active &= (nonz > 0) & (
+                np.divide(tot, np.maximum(nonz, 1)) >= self.pol.boost_thresh)
+
+        if self.nofw or self.norc:
+            # --nofw/--norc (ref: bt2_search.cpp gNofw/gNorc)
+            cand = {c for c in cand
+                    if (c[1] and not self.nofw) or (not c[1]
+                                                    and not self.norc)}
+        if not cand:
+            empty_state.seeds_failed_r0 = seeds_failed_r0
+            return empty_state
+
+        # -- DP extension of every candidate: interior candidates through
+        # the banded DP, those whose window crosses a run boundary or the
+        # reference end through the rectangle DP in reference space with N
+        # leeway (ref: dp_framer.cpp:81 frameSeedExtensionRect) --
+        cands = sorted(cand)
+        K = self.band
+        c_half = K // 2
+        joined = self.idx.joined
+        band_ids, rect_ids, rect_geom = [], [], []
+        frame_st = SimpleNamespace(cands=cands, lens=lens, nceil=nceil)
+        run_idx = np.searchsorted(
+            self._run_starts, np.maximum([c[2] for c in cands], 0),
+            side="right") - 1
+        run_idx = np.clip(run_idx, 0, max(len(self._run_starts) - 1, 0))
+        for ci, (i, _, diag) in enumerate(cands):
+            rl = int(lens[i])
+            lo = int(self._run_starts[run_idx[ci]])
+            hi = int(self._run_ends[run_idx[ci]])
+            if diag - c_half >= lo and diag - c_half + rl + K <= hi:
+                band_ids.append(ci)
+            else:
+                fr = self._rect_frame(frame_st, ci)
+                if fr is not None:
+                    rect_ids.append(ci)
+                    rect_geom.append(fr)
+
+        C = len(cands)
+        best = np.full(C, NEG_INF, np.int64)
+        end_joined = np.full(C, -1, np.int64)
+        fin_info = [None] * C  # what _finish needs per candidate
+
+        def read_arrays(ci):
+            i, is_fw, _ = cands[ci]
+            rl = int(lens[i])
+            seqs = fw_seqs if is_fw else rc_seqs
+            quals = fw_quals if is_fw else rc_quals
+            return (seqs[i, :rl],
+                    mmtab[np.clip(quals[i, :rl], 0, 255)].astype(np.int32), rl)
+
+        if band_ids:
+            nb = len(band_ids)
+            rd_m = np.full((nb, L), 5, np.uint8)
+            mm_m = np.zeros((nb, L), np.int32)
+            band_m = np.full((nb, L + K), 4, np.uint8)
+            clens = np.zeros(nb, np.int32)
+            for bi_, ci in enumerate(band_ids):
+                rd, mm, rl = read_arrays(ci)
+                rd_m[bi_, :rl] = rd
+                mm_m[bi_, :rl] = mm
+                clens[bi_] = rl
+                ws = cands[ci][2] - c_half
+                band_m[bi_, : rl + K] = joined[ws : ws + rl + K]
+            b_best, b_bi, b_bk = sw_banded_batch(
+                rd_m, clens, mm_m, band_m, self.sw_cfg, K=K,
+                device=self.device)
+            for bi_, ci in enumerate(band_ids):
+                i = cands[ci][0]
+                ws = cands[ci][2] - c_half
+                best[ci] = int(b_best[bi_])
+                end_joined[ci] = ws + int(b_bi[bi_]) + int(b_bk[bi_])
+                fin_info[ci] = ("band", int(b_bi[bi_]), int(b_bk[bi_]),
+                                band_m[bi_, : int(lens[i]) + K], ws)
+
+        if rect_ids:
+            nr = len(rect_ids)
+            lq = max(int(lens[cands[ci][0]]) for ci in rect_ids)
+            wmax = max(wr - wl for _, wl, wr in rect_geom)
+            lq = -(-lq // 64) * 64
+            wmax = -(-wmax // 128) * 128
+            rd_m = np.full((nr, lq), 5, np.uint8)
+            mm_m = np.zeros((nr, lq), np.int32)
+            ref_m = np.full((nr, wmax), 4, np.uint8)
+            clens = np.zeros(nr, np.int32)
+            wlens = np.zeros(nr, np.int32)
+            for ri, (ci, (rid, wl, wr)) in enumerate(zip(rect_ids,
+                                                         rect_geom)):
+                rd, mm, rl = read_arrays(ci)
+                rd_m[ri, :rl] = rd
+                mm_m[ri, :rl] = mm
+                clens[ri] = rl
+                ref_m[ri, : wr - wl] = self.idx.get_ref_stretch(rid, wl,
+                                                                wr - wl)
+                wlens[ri] = wr - wl
+            r_best, r_bi, r_bj = sw_align_batch(
+                rd_m, clens, mm_m, ref_m, wlens, self.sw_cfg,
+                device=self.device)
+            for ri, (ci, (rid, wl, wr)) in enumerate(zip(rect_ids,
+                                                         rect_geom)):
+                best[ci] = int(r_best[ri])
+                end_joined[ci] = wl + int(r_bj[ri])
+                fin_info[ci] = ("rectr", int(r_bi[ri]), int(r_bj[ri]),
+                                ref_m[ri, : wr - wl], (rid, wl))
+
+        # -- the per-batch state --
+        by_read: dict[int, list[int]] = {}
+        for ci, (i, _, _) in enumerate(cands):
+            by_read.setdefault(i, []).append(ci)
+        return SimpleNamespace(
+            B=B, recs=recs, cands=cands, best=best, end_joined=end_joined,
+            fin_info=fin_info, by_read=by_read, read_arrays=read_arrays,
+            lens=lens, minsc=minsc, perfect=perfect, nceil=nceil,
+            exact_mult=exact_mult, filtered=filtered,
+            seeds_failed_r0=seeds_failed_r0, fw_seqs=fw_seqs)
 
     def read_seed(self, st, i) -> int:
         """Per-read 32-bit seed from the read content (ref: pat.cpp:129

@@ -46,9 +46,8 @@ import torch
 from bowtie2_server_tpu_torch.ops import sw_banded as sb_mod
 from bowtie2_server_tpu_torch.ops.sw import SwConfig
 from bowtie2_server_tpu_torch.ops.sw_banded import banded_dp, banded_tile_torch
-from bowtie2_server_tpu_torch.scripts.bench_dp import (card_line,
-                                                       measure_alu_ceiling,
-                                                       time_ms)
+from bowtie2_server_tpu_torch.scripts.bench_dp import (
+    BANDED_SYMBOL, card_line, device_ms, measure_alu_ceiling, time_ms)
 from bowtie2_server_tpu_torch.scripts.bench_rect import bound
 
 P_FUSED, LQ = 33792, 128
@@ -115,7 +114,8 @@ def banded_bound(lens, lq: int, K: int, local: bool, ceiling: float):
 
 def measure(device, ceiling: float, reps: int = 5, plain_reps: int = 0,
             chrom=None):
-    """One row per shape and mode: the kernel's median ms (CUDA events),
+    """One row per shape and mode: the kernel's median device time
+    (`ms`, bench_dp.device_ms) and CUDA-event time of a call (`event_ms`),
     the bound, and max_abs_err of the kernel against the plain version on
     the same tensors; `plain_ms` too when plain_reps > 0."""
     out = []
@@ -126,10 +126,12 @@ def measure(device, ceiling: float, reps: int = 5, plain_reps: int = 0,
             got = banded_dp(cfg, K, *args)
             want = banded_tile_torch(cfg, K, *args)
             err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-            ms = time_ms(lambda: banded_dp(cfg, K, *args), device, reps)
+            call = lambda: banded_dp(cfg, K, *args)
+            ms = device_ms(call, device, BANDED_SYMBOL, reps)
             b_ms, b_by = banded_bound(arrs[2], lq, K, cfg.local, ceiling)
             row = dict(shape=name, mode=mode, P=P, lq=lq, K=K, ms=ms,
-                       bound_ms=b_ms, bound_by=b_by, frac_of_bound=b_ms / ms,
+                       event_ms=time_ms(call, device, reps), bound_ms=b_ms,
+                       bound_by=b_by, frac_of_bound=b_ms / ms,
                        max_abs_err=err)
             if plain_reps:
                 row["plain_ms"] = time_ms(

@@ -9,9 +9,11 @@ keys (`metric` = dp_banded_cells_per_s_per_chip, `value`, `unit`,
 `roofline_frac`), the measured ceiling `ceiling_ops_per_s`, and `card`, the
 `nvidia-smi --query-gpu=name,power.limit` line of the card it ran on.
 
-Timing: CUDA events around each of REPS back-to-back launches after a
-warm-up launch, median. (The reference bench chains its calls inside one
-jit to work around its TPU host link; the card needs no such trick.)
+Timing (`device_ms`): the kernel's own device time under torch.profiler,
+median of REPS launches after a warm-up launch. CUDA events around a call
+would also bracket the wrapper's host work before its launch. (The
+reference bench chains its calls inside one jit to work around its TPU host
+link; the card needs no such trick.)
 
 Roofline model: `ops_per_cell` is the reference bench's count of the TPU
 kernel's int32 operations per cell, whose E scan is a Kogge-Stone scan of
@@ -46,6 +48,9 @@ from ..ops.sw import SwConfig
 from ..ops.sw_banded import REGISTER_BAND_MAX, banded_dp
 
 REPS = 10
+# the register banded kernel's profiler name (not its general kernel, which
+# banded_dp launches after it and which returns at once on these scores)
+BANDED_SYMBOL = "::banded_kernel<"
 
 
 def ops_per_cell(K: int, local: bool) -> float:
@@ -86,13 +91,48 @@ def time_ms(fn, device, reps: int = REPS) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in zip(ev, ev[1:]))
 
 
+def device_ms(fn, device, symbol: str, reps: int = REPS,
+              sessions: int = 8) -> float:
+    """Median device time (ms) of the one kernel whose profiler name
+    contains `symbol` that each fn() launches, over the first `reps`
+    launches that torch.profiler saw, after a warm-up call. Its tracer has
+    missed launches of short kernels (0.01 ms) in short sessions, so each
+    session starts with a 1 ms sleep kernel on the card, and it profiles
+    up to `sessions` rounds of `reps` calls until it has seen `reps`. CUDA
+    events around one call would also bracket the wrapper's host work
+    before its launch, which is not small beside a kernel of 0.05 ms. On
+    the CPU: time_ms."""
+    if device.type != "cuda":
+        return time_ms(fn, device, reps)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1 << 21)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(device)
+        times += [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and symbol in e.name]
+        if len(times) >= reps:
+            break
+    if not times:
+        raise RuntimeError(f"the profiler saw no launch of {symbol} in "
+                           f"{sessions * reps} calls")
+    return statistics.median(times[:reps]) / 1e3
+
+
 def measure_alu_ceiling(device, P: int = 32768, rows: int = 64,
                         nsteps: int = 3000, reps: int = 5):
     """(int32 ops/s, ms a launch) of the probe over a [rows, P] tile,
     counting OPS_PER_STEP operations a step and element."""
     x = torch.from_numpy(np.random.default_rng(1).integers(
         0, 100, (rows, P)).astype(np.int32)).to(device)
-    ms = time_ms(lambda: alu_chain(x, nsteps), device, reps)
+    ms = device_ms(lambda: alu_chain(x, nsteps), device, "alu_kernel", reps)
     return OPS_PER_STEP * nsteps * rows * P / (ms / 1e3), ms
 
 
@@ -131,7 +171,9 @@ def run(device="cuda", P: int = 32768, L: int = 100, K: int = 32,
                            "plain versions")
     cfg = SwConfig(ma=2, local=True) if local else SwConfig()
     args = banded_inputs(P, L, K, device)
-    ms = time_ms(lambda: banded_dp(cfg, K, *args), device)
+    ms = device_ms(lambda: banded_dp(cfg, K, *args), device,
+                   BANDED_SYMBOL if K <= REGISTER_BAND_MAX
+                   else "banded_wide_kernel")
     if ceiling is None:
         ceiling, _ = (measure_alu_ceiling(device) if device.type == "cuda"
                       else measure_alu_ceiling(device, P=256, rows=8,

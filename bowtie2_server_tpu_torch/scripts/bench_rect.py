@@ -49,9 +49,8 @@ import torch
 
 from bowtie2_server_tpu_torch.ops import sw as sw_mod
 from bowtie2_server_tpu_torch.ops.sw import SwConfig, sw_tile, sw_tile_torch
-from bowtie2_server_tpu_torch.scripts.bench_dp import (card_line,
-                                                       measure_alu_ceiling,
-                                                       time_ms)
+from bowtie2_server_tpu_torch.scripts.bench_dp import (
+    card_line, device_ms, measure_alu_ceiling, time_ms)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, HBM3 (NVIDIA data sheet)
 # name -> (P, Lq_pad, Lc, read lengths (lo, hi), window lengths (lo, hi))
@@ -124,7 +123,8 @@ def rect_bound(lens, reflens, lq_pad: int, lc: int, local: bool,
 
 def measure(device, ceiling: float, reps: int = 5, plain_reps: int = 0,
             seed: int = 6):
-    """One row per shape and mode: the kernel's median ms (CUDA events),
+    """One row per shape and mode: the kernel's median device time
+    (`ms`, bench_dp.device_ms) and CUDA-event time of a call (`event_ms`),
     the bound, and max_abs_err of the kernel against the plain version on
     the same tensors; `plain_ms` too when plain_reps > 0."""
     out = []
@@ -135,11 +135,13 @@ def measure(device, ceiling: float, reps: int = 5, plain_reps: int = 0,
             got = sw_tile(cfg, *args)
             want = sw_tile_torch(cfg, *args)
             err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-            ms = time_ms(lambda: sw_tile(cfg, *args), device, reps)
+            call = lambda: sw_tile(cfg, *args)
+            ms = device_ms(call, device, "rect_warp_kernel", reps)
             b_ms, b_by = rect_bound(arrs[2], arrs[4], lq_pad, lc, cfg.local,
                                     ceiling)
             row = dict(shape=name, mode=mode, P=P, lq_pad=lq_pad, lc=lc,
-                       ms=ms, bound_ms=b_ms, bound_by=b_by,
+                       ms=ms, event_ms=time_ms(call, device, reps),
+                       bound_ms=b_ms, bound_by=b_by,
                        frac_of_bound=b_ms / ms, max_abs_err=err)
             if plain_reps:
                 row["plain_ms"] = time_ms(lambda: sw_tile_torch(cfg, *args),

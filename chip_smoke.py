@@ -11,7 +11,9 @@ prints no result line:
      spills of each);
   3. kernels: each CUDA kernel against its plain torch version on the same
      CUDA tensors, at the shapes its path gives it (exact equality,
-     tolerance 0: all values are int32), with the median time of each and
+     tolerance 0: all values are int32), with the median device time of
+     each under torch.profiler (bench_dp.device_ms; the CUDA-event time of
+     a call, which also brackets the wrapper's host work, beside it) and
      its bound: the wide-band kernel (K = 128, beside the register kernel
      at the same band, and K = 256, 512), the ALU-ceiling probe (its rate
      is the int32 ceiling every bound divides by), the register banded
@@ -51,23 +53,46 @@ prints no result line:
      at dispatch depth 2; both kernels must launch; placement of both mates
      at their planted origin and strand is checked; two more pair batches
      run under torch.profiler, as in phase 4;
+  SR. the short-read path at full width: the general shape (FM walks on
+     the card) on phase 4's genome, its fw and mirror FM directions on the
+     card (full SA, sides, ftab); 36 bp reads (0-2 substitutions, half
+     reverse complemented, 1% with an N), one warm-up batch of 32768 and 4
+     measured at depth 4, placement checked, two more under
+     torch.profiler (device busy share, the FM kernels' shares); fm_walk,
+     fm_lf_step and the banded kernel must launch;
+  N1. one -N 1 batch of 32768 reads of 100 bp on the same genome, timed,
+     placement checked;
+  FM. fm_walk and fm_lf_step against their plain torch versions on the
+     inputs the SR batch gave them (its recorded pass of 65536 lanes x 64
+     steps, its ftab seed search, its 1-mismatch continuation and branch
+     grid) and an ftab search over the -N 1 batch's seeds, each timed as
+     in phase 3 against its bound and its
+     dependent-chain floor (steps x the measured time of one dependent
+     step), and exact on the FM edge tiles of tests/torch_tiles.py over
+     both directions of the genome;
   5. CUDA against CPU, each through the port on both devices with identical
      output: one batch of 2048 reads (decoded batch results and SAM
-     lines); 512 pairs (SAM lines); one batch of 2048 reads at --dpad 32,
-     band K = 256, the path on which the wide-band kernel must launch;
+     lines); 2048 reads of 18-60 bp and 2048 under -N 1 (the same); the
+     host path: 256 reads under -k 2000 and under -a on a genome with a
+     100 bp unit planted 300 times, and an index without its mirror
+     direction (SAM lines); 512 pairs (SAM lines); one batch of 2048 reads
+     at --dpad 32, band K = 256, the path on which the wide-band kernel
+     must launch;
   6. the entry point: `python -m bowtie2_server_tpu_torch align` on 10k reads
-     (-U) and on 5000 pairs (-1/-2) must write well-formed SAM.
+     (-U, and with -N 1 -L 20, and with -k 5) and on 5000 pairs (-1/-2)
+     must write well-formed SAM.
 The line before the last is a JSON object {"kernels": [...]}, with each
 kernel's bound (bench_rect.bound: the larger of its int32 operations over
 the probe's ceiling and its bytes over HBM3's 3.35 TB/s; a cell counts
 bench_banded.banded_ops_per_cell operations in the banded kernels,
-bench_rect.dp_ops_per_cell in the rect kernel) and share of bound; the
-last line is {"ok": true, "device": {...}}.
+bench_rect.dp_ops_per_cell in the rect kernel; an LF step
+bench_fm.OPS_PER_STEP and each input once) and share of bound; the last
+line is {"ok": true, "device": {...}}.
 """
 import argparse
+import contextlib
 import json
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -110,6 +135,19 @@ SEEDLESS_FRAC = 0.02
 # score as well.
 PAIR_ORIGIN_MIN = 0.99
 WIDE_MAXHALF = 32   # --dpad whose band (K = 256) the wide-band kernel serves
+# the short-read path (the general shape: FM walks on the card): 36 bp
+# reads with 0-2 substitutions on the main path's genome, --sensitive e2e
+SR_LEN = 36
+SR_BATCHES = 4      # measured batches, after one warm-up batch
+N1_LEN = 100        # the -N 1 batch's reads (bench.py's)
+# Fractions of reads placed at their planted origin and strand. The port's
+# own CPU run of these workloads at small size (a 0.4 Mbp chromosome plus
+# 40 contigs; 8192 reads of 36 bp, 2048 of 100 bp under -N 1) placed
+# 0.8811 and 1.0000 of them, and no read elsewhere: a 36 bp read with two
+# substitutions often breaks every seed and stays unaligned, as in the
+# reference. The limits leave room for sampling.
+ORIGIN_MIN_SR = 0.85
+ORIGIN_MIN_N1 = 0.99
 # the kernels device_shares reports, by a part of their names in the
 # profiler: the register banded kernel, the general kernel launched after
 # it in every call (it returns at once on the paths' scores), and the rect
@@ -117,7 +155,8 @@ WIDE_MAXHALF = 32   # --dpad whose band (K = 256) the wide-band kernel serves
 # rect_kernel)
 SHARE_SYMBOLS = {"banded": "::banded_kernel<",
                  "banded_general": "::banded_general_kernel<",
-                 "rect": "::rect_"}
+                 "rect": "::rect_", "fm_walk": "fm_walk_kernel",
+                 "fm_lf_step": "fm_lf_step_kernel"}
 # kernels line: name -> (source in the port, the TPU kernel it replaces)
 KERNEL_SOURCES = {
     "sw_banded": ("sw_banded.cu", "bowtie2_server_tpu/ops/sw_banded.py:240"),
@@ -127,6 +166,10 @@ KERNEL_SOURCES = {
                        "bowtie2_server_tpu/ops/sw_banded.py:240"),
     "sw": ("sw.cu", "bowtie2_server_tpu/ops/sw.py:282"),
     "alu_probe": ("alu_probe.cu", "scripts/bench_dp.py:48"),
+    # not TPU kernels: the plain-jnp LF chain the JAX package left to XLA
+    # (lf_step stepped by lax.fori_loop), given kernels of its own
+    "fm_walk": ("fm.cu", "bowtie2_server_tpu/ops/fm.py:240 lf_step"),
+    "fm_lf_step": ("fm.cu", "bowtie2_server_tpu/ops/fm.py:240 lf_step"),
 }
 
 
@@ -158,32 +201,56 @@ def make_genome(seed: int, chrom_len: int, n_contigs: int, contig_len: int):
     return fa, contigs
 
 
-def make_reads(seed: int, contigs, n: int):
-    """bench.py-shaped reads drawn uniformly over the genome: (names, seqs,
-    quals, origin) with origin = (contig id, 0-based start, forward?)."""
+def make_reads(seed: int, contigs, n: int, read_len: int = READ_LEN,
+               max_subs: int = 3):
+    """bench.py-shaped reads drawn uniformly over the genome (read_len
+    bases, 0..max_subs substitutions, 1% with an N, half reverse
+    complemented): (names, seqs, quals, origin) with origin = (contig id,
+    0-based start, forward?)."""
     rng = np.random.default_rng(seed)
-    starts_per = np.array([len(c) - READ_LEN + 1 for c in contigs])
+    starts_per = np.array([len(c) - read_len + 1 for c in contigs])
     cum = np.cumsum(starts_per)
     u = rng.integers(0, cum[-1], n)
     cid = np.searchsorted(cum, u, side="right")
     start = u - (cum[cid] - starts_per[cid])
     flat = np.concatenate(contigs)
     off = np.concatenate([[0], np.cumsum([len(c) for c in contigs])[:-1]])
-    reads = flat[(off[cid] + start)[:, None] + np.arange(READ_LEN)]
-    nmut = rng.integers(0, 4, n)
-    for k in range(3):                  # 0-3 substitutions per read
+    reads = flat[(off[cid] + start)[:, None] + np.arange(read_len)]
+    nmut = rng.integers(0, max_subs + 1, n)
+    for k in range(max_subs):
         m = nmut > k
-        pos = rng.integers(0, READ_LEN, n)
+        pos = rng.integers(0, read_len, n)
         reads[m, pos[m]] = rng.integers(0, 4, n).astype(np.uint8)[m]
     with_n = rng.random(n) < 0.01
-    reads[with_n, rng.integers(0, READ_LEN, n)[with_n]] = 4
+    reads[with_n, rng.integers(0, read_len, n)[with_n]] = 4
     rc = rng.random(n) < 0.5
     reads[rc] = np.where(reads[rc] < 4, 3 - reads[rc], 4)[:, ::-1]
     arr = np.frombuffer(b"ACGTN", np.uint8)[reads]
     names = [f"b{i}" for i in range(n)]
     seqs = [row.tobytes() for row in arr]
-    quals = [b"I" * READ_LEN] * n
+    quals = [b"I" * read_len] * n
     return names, seqs, quals, (cid, start, ~rc)
+
+
+def make_mixed_reads(seed: int, contigs, n: int, lo: int = 18, hi: int = 60):
+    """Reads of lo..hi bases (0-2 substitutions, half reverse complemented)
+    drawn from the first contig: (names, seqs, quals)."""
+    rng = np.random.default_rng(seed)
+    chrom = contigs[0]
+    comp = np.array([3, 2, 1, 0, 4], np.uint8)
+    bases = np.frombuffer(b"ACGTN", np.uint8)
+    seqs = []
+    for _ in range(n):
+        rl = int(rng.integers(lo, hi + 1))
+        s = int(rng.integers(0, len(chrom) - rl))
+        r = chrom[s : s + rl].copy()
+        for _ in range(int(rng.integers(0, 3))):
+            r[rng.integers(0, rl)] = rng.integers(0, 4)
+        if rng.random() < 0.5:
+            r = comp[r][::-1]
+        seqs.append(bases[r].tobytes())
+    return ([f"m{i}" for i in range(n)], seqs,
+            [b"I" * len(q) for q in seqs])
 
 
 def make_pairs(seed: int, chroms, n: int):
@@ -250,12 +317,12 @@ def pair_origin_fraction(pairs, origin) -> float:
     return float(ok.mean())
 
 
-def origin_fraction(recs, origin, local: bool) -> float:
+def origin_fraction(recs, origin, local: bool, read_len=READ_LEN) -> float:
     aligned, rid, pos, fw = placements(recs)
     cid, start, ofw = origin
     ok = aligned & (rid == cid) & (fw == ofw)
     if local:    # soft clipping moves the start inside the read span
-        ok &= (pos >= start) & (pos < start + READ_LEN)
+        ok &= (pos >= start) & (pos < start + read_len)
     else:
         ok &= pos == start
     return float(ok.mean())
@@ -283,49 +350,36 @@ def phase_build():
     kernels.lib()
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of fn() on the card (CUDA events, after a
-    warm-up run and a synchronize)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def hold(label: str, arg, kernel, plain):
+def hold(label: str, arg, kernel, plain, symbol: str):
     """kernel(arg) against plain(arg), both returning tuples of int32 CUDA
     tensors (or one tensor): logs and returns (max_abs_err, kernel ms,
-    plain ms)."""
+    plain ms, kernel event ms). The kernel's ms is the device time of its
+    launch whose profiler name contains `symbol` (bench_dp.device_ms); the
+    event ms brackets a call with CUDA events, the wrapper's host work
+    included, as the plain version's ms does."""
     import torch
+    from bowtie2_server_tpu_torch.scripts.bench_dp import device_ms, time_ms
     got, want = kernel(arg), plain(arg)
     torch.cuda.synchronize()
     if isinstance(got, torch.Tensor):
         got, want = (got,), (want,)
     err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-    ms = cuda_ms(lambda: kernel(arg))
-    pms = cuda_ms(lambda: plain(arg), reps=3)
-    log(f"{label} max_abs_err={err} kernel {ms:.3f} ms, plain {pms:.3f} ms")
-    return err, ms, pms
+    dev = torch.device("cuda")
+    ms = device_ms(lambda: kernel(arg), dev, symbol, reps=5)
+    ems = time_ms(lambda: kernel(arg), dev, reps=5)
+    pms = time_ms(lambda: plain(arg), dev, reps=3)
+    log(f"{label} max_abs_err={err} kernel {ms:.4f} ms (events {ems:.4f} "
+        f"ms), plain {pms:.3f} ms")
+    return err, ms, pms, ems
 
 
-def summary(runs, work, ceiling):
-    """The largest error of `runs`, the times of the first, and the first's
-    bound from its work (int32 operations, bytes) and the int32 ceiling
-    (ops/s): bench_rect.bound, and the share of it the kernel reached."""
-    from bowtie2_server_tpu_torch.scripts.bench_rect import bound
-    b_ms, b_by = bound(*work, ceiling)
-    err, ms, pms = max(r[0] for r in runs), runs[0][1], runs[0][2]
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                bound_by=b_by, frac_of_bound=b_ms / ms)
+def summary(runs, bnd):
+    """The largest error of `runs` (hold() results), the times of the
+    first, and the first's bound `bnd` (ms, "bytes" or "operations") with
+    the share of it the kernel reached."""
+    err, ms, pms, ems = max(r[0] for r in runs), *runs[0][1:]
+    return dict(max_abs_err=err, ms=ms, event_ms=ems, plain_ms=pms,
+                bound_ms=bnd[0], bound_by=bnd[1], frac_of_bound=bnd[0] / ms)
 
 
 def phase_kernels(contigs):
@@ -350,7 +404,8 @@ def phase_kernels(contigs):
         return [hold(f"sw_banded_wide {mode}: Lq={args[0].shape[0]} K={K} "
                      f"P={args[0].shape[1]}", cfg,
                      lambda c: tsb._launch("sw_banded_wide", c, K, *args),
-                     lambda c: tsb.banded_tile_torch(c, K, *args))
+                     lambda c: tsb.banded_tile_torch(c, K, *args),
+                     "banded_wide_kernel")
                 for mode, cfg in modes]
 
     def inputs(seed, P, K, lq):
@@ -382,20 +437,19 @@ def phase_kernels(contigs):
         0, 100, (rows, P)).astype(np.int32)).to(dev)
     run = hold(f"alu_probe: [{rows}, {P}] nsteps={nsteps}", nsteps,
                lambda n: alu_probe.alu_chain(x, n),
-               lambda n: alu_probe.alu_chain_torch(x, n))
+               lambda n: alu_probe.alu_chain_torch(x, n), "alu_kernel")
     n_ops = alu_probe.OPS_PER_STEP * nsteps * rows * P
     ceiling = n_ops / (run[1] / 1e3)
     log(f"int32 ceiling measured by the probe: {ceiling:.4e} ops/s")
     out = {"alu_probe": dict(
-        summary([run], (n_ops, 0), ceiling), ceiling_ops_per_s=ceiling,
+        summary([run], bench_rect.bound(n_ops, 0, ceiling)),
+        ceiling_ops_per_s=ceiling,
         bound_note="the probe's own time: it measures the int32 ceiling "
                    "that the other kernels' bounds divide by")}
     ws = {}
     for key, (runs, lens, K, lq) in wide.items():
-        b_ms, b_by = bench_banded.banded_bound(lens, lq, K, False, ceiling)
-        ws[key] = dict(max_abs_err=max(r[0] for r in runs), ms=runs[0][1],
-                       plain_ms=runs[0][2], bound_ms=b_ms, bound_by=b_by,
-                       frac_of_bound=b_ms / runs[0][1])
+        ws[key] = summary(runs, bench_banded.banded_bound(lens, lq, K, False,
+                                                          ceiling))
     out["sw_banded_wide"] = dict(ws["main"], k128=ws["k128"])
     out["sw_banded_wide"]["max_abs_err"] = max(w["max_abs_err"]
                                                for w in ws.values())
@@ -438,8 +492,8 @@ def phase_kernels(contigs):
     main = brows[0]
     out["sw_banded"] = dict(
         max_abs_err=max([edge_err] + [r["max_abs_err"] for r in brows]),
-        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "frac_of_bound")}, shapes=brows,
+        **{k: main[k] for k in ("ms", "event_ms", "plain_ms", "bound_ms",
+                                "bound_by", "frac_of_bound")}, shapes=brows,
         row_loop_instructions_per_cell=loop)
     # the general kernel at the K = 64 shape: a match bonus past a byte
     # sends every problem to it, so the call launches it alone
@@ -448,15 +502,16 @@ def phase_kernels(contigs):
     run = hold(f"sw_banded_general local, ma = {LARGE_SCORE_CFG['ma']}: "
                f"Lq={lq} K={K} P={P}", tsw.SwConfig(**LARGE_SCORE_CFG),
                lambda c: tsb.banded_dp(c, K, *args),
-               lambda c: tsb.banded_tile_torch(c, K, *args))
+               lambda c: tsb.banded_tile_torch(c, K, *args),
+               "banded_general_kernel")
     fast = next(r for r in brows if r["shape"] == "k64" and
                 r["mode"] == "local")
     log(f"  beside the register kernel at this shape, local: "
         f"{fast['ms']:.4f} ms")
-    b_ms, b_by = bench_banded.banded_bound(arrs[2], lq, K, True, ceiling)
     out["sw_banded_general"] = dict(
-        max_abs_err=max(run[0], edge_err), ms=run[1], plain_ms=run[2],
-        bound_ms=b_ms, bound_by=b_by, frac_of_bound=b_ms / run[1])
+        summary([run], bench_banded.banded_bound(arrs[2], lq, K, True,
+                                                 ceiling)),
+        max_abs_err=max(run[0], edge_err))
 
     # the rectangle kernel at bench_rect's three shapes, e2e and local; the
     # unpaired path's shape (P = 210) is the one reported
@@ -486,8 +541,8 @@ def phase_kernels(contigs):
     main = next(r for r in shapes if r["shape"] == "unpaired")
     out["sw"] = dict(
         max_abs_err=max([tie_err] + [r["max_abs_err"] for r in shapes]),
-        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                "frac_of_bound")}, shapes=shapes,
+        **{k: main[k] for k in ("ms", "event_ms", "plain_ms", "bound_ms",
+                                "bound_by", "frac_of_bound")}, shapes=shapes,
         step_loop_instructions=loop)
     for name, r in out.items():
         log(f"{name}: {r['ms']:.4f} ms against a bound of "
@@ -733,30 +788,411 @@ def phase_paired(pidx, chroms):
     return launches, dict(pairs_per_s=pps, origin=frac, device=shares)
 
 
-def phase_parity(idx, contigs, n=2048):
+@contextlib.contextmanager
+def first_calls(module, names, when=lambda name, args: True):
+    """{name: (args, kwargs)} of the first call of each of `module`'s
+    functions `names` made while the block runs for which when(name, args)
+    holds (the calls go through)."""
+    got, origs = {}, {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*a, **k):
+            if name not in got and when(name, a):
+                got[name] = (a, k)
+            return fn(*a, **k)
+        return call
+
+    for name, fn in origs.items():
+        setattr(module, name, wrap(name, fn))
+    try:
+        yield got
+    finally:
+        for name, fn in origs.items():
+            setattr(module, name, fn)
+
+
+# the FM functions whose inputs phase FM takes from the short-read batch
+FM_CALLS = ("backward_search_record_body", "backward_search_body", "lf_step",
+            "one_mm_phase1_body")
+
+
+def run_short_path(idx, contigs, device, batch, n_batches, seed=31):
+    """The short-read path: one warm-up batch of SR_LEN-base reads (the
+    inputs of its first FM calls captured), then n_batches at dispatch
+    depth DEPTH, then PROFILED batches under torch.profiler. Returns
+    (reads/s, aligned fraction, origin fraction, warm-up seconds, the
+    profile, the captured calls)."""
+    import torch
+    from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.ops import fm as dfm
+    names, seqs, quals, origin = make_reads(
+        seed, contigs, batch * (n_batches + 1 + PROFILED), read_len=SR_LEN,
+        max_subs=2)
+    batches = [(make_batch(names[i : i + batch], seqs[i : i + batch],
+                           quals[i : i + batch]),)
+               for i in range(0, len(names), batch)]
+    al = UnpairedAligner(idx, device=device)
+    t0 = time.time()
+    with first_calls(dfm, FM_CALLS) as cap:
+        outs = [al.align_batch(*batches[0])]
+    warm = time.time() - t0
+    t0 = time.time()
+    outs += pipelined(al.align_async, al.align_wait,
+                      batches[1 : n_batches + 1], DEPTH)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    prof = profile_device(lambda: pipelined(
+        al.align_async, al.align_wait, batches[n_batches + 1 :], DEPTH))
+    n = batch * n_batches
+    aligned = sum(r.n_aligned() for r in outs[1:]) / n
+    frac = np.mean([origin_fraction(r, tuple(o[i * batch : (i + 1) * batch]
+                                             for o in origin), False, SR_LEN)
+                    for i, r in enumerate(outs)])
+    return n / dt, aligned, float(frac), warm, prof, cap
+
+
+def phase_short(idx, contigs):
+    """Phase SR: the general short-read shape at full width on the main
+    path's genome, its fw and mirror FM directions on the card."""
+    import torch
+    from bowtie2_server_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    rps, aligned, frac, warm, prof, cap = run_short_path(
+        idx, contigs, "cuda", BATCH, SR_BATCHES)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    n_all = 1 + SR_BATCHES + PROFILED
+    log(f"short-read path ({SR_LEN} bp, e2e): {rps:.1f} reads/s over "
+        f"{SR_BATCHES} batches of {BATCH} at depth {DEPTH} (warm-up batch "
+        f"{warm:.2f} s); aligned {aligned:.4f}; at planted origin and strand "
+        f"{frac:.4f}; kernel launches over all {n_all} batches {launches}; "
+        f"fm_walk {launches['fm_walk'] / n_all:.2f} a batch")
+    shares = device_shares(f"short-read path ({SR_LEN} bp)", prof, PROFILED)
+    if frac < ORIGIN_MIN_SR:
+        raise RuntimeError(f"short-read origin fraction {frac:.4f} < "
+                           f"{ORIGIN_MIN_SR}")
+    for name in ("fm_walk", "fm_lf_step", "sw_banded"):
+        if launches[name] == 0:
+            raise RuntimeError(f"the short-read path never launched {name}")
+    return launches, dict(reads_per_s=rps, aligned=aligned, origin=frac,
+                          device=shares), cap
+
+
+def phase_n1(idx, contigs, n=BATCH, seed=32):
+    """One -N 1 batch of n reads of N1_LEN bases (the inputs of the first
+    recorded pass over its seeds captured), timed (host clock,
+    synchronised)."""
+    import torch
+    from bowtie2_server_tpu_torch.align.pipeline import (SearchPolicy,
+                                                         UnpairedAligner)
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.ops import fm as dfm
+    from bowtie2_server_tpu_torch.ops import kernels
+    names, seqs, quals, origin = make_reads(seed, contigs, n,
+                                            read_len=N1_LEN)
+    al = UnpairedAligner(idx, policy=SearchPolicy(n_seed_mms=1),
+                         device="cuda")
+    batch = make_batch(names, seqs, quals)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    # the seeds' pass: patterns narrower than the reads' rows
+    with first_calls(dfm, ("backward_search_record_body",),
+                     lambda _, a: a[1].shape[1] < N1_LEN) as cap:
+        recs = al.align_batch(batch)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    frac = origin_fraction(recs, origin, False, N1_LEN)
+    log(f"-N 1 batch: {n} reads of {N1_LEN} bp in {dt:.3f} s ({n / dt:.1f} "
+        f"reads/s); at planted origin and strand {frac:.4f}; kernel launches "
+        f"{launches}")
+    if frac < ORIGIN_MIN_N1:
+        raise RuntimeError(f"-N 1 origin fraction {frac:.4f} < "
+                           f"{ORIGIN_MIN_N1}")
+    if launches["fm_walk"] == 0 or launches["fm_lf_step"] == 0:
+        raise RuntimeError("the -N 1 batch never launched the FM kernels")
+    # the batch's first dispatch (capacities at 1x) once more, on a fresh
+    # aligner: its counters against the sets they must fit
+    al = UnpairedAligner(idx, policy=SearchPolicy(n_seed_mms=1),
+                         device="cuda")
+    h = al.collect_async(batch)[4]
+    ctr, cfg = al.candgen.fetch(h).counters[0], h[1]
+    sets = dict(candidates=(ctr[0], cfg.C_max), elements=(ctr[1], cfg.C_pre),
+                branches_fw=(ctr[2], cfg.k1), branches_mirror=(ctr[3], cfg.k1),
+                hit_ranges=(ctr[4], cfg.NH))
+    log("-N 1 batch at 1x: " + ", ".join(
+        f"{k} {int(v)} of {int(c)}" for k, (v, c) in sets.items()))
+    return dict(reads_per_s=n / dt, seconds=dt, origin=frac,
+                sets_at_1x={k: [int(v), int(c)] for k, (v, c) in
+                            sets.items()}), cap
+
+
+def phase_fm_kernels(idx, sr_cap, n1_cap, ceiling):
+    """fm_walk and fm_lf_step against their plain torch versions on the
+    inputs the paths gave them: the short-read batch's recorded fw pass
+    (2 x 32768 lanes, 64 steps), its ftab seed search, its 1-mismatch
+    continuation and its phase-0 branch grid, and an ftab search over the
+    -N 1 batch's seeds; exact on
+    the edge tiles of tests/torch_tiles.py over both directions of the
+    genome; the time of one dependent step. Returns the two kernels'
+    entries of the kernels line."""
+    import torch
+    from bowtie2_server_tpu_torch.ops import fm as dfm
+    from bowtie2_server_tpu_torch.ops import kernels
+    from bowtie2_server_tpu_torch.scripts import bench_fm
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_tiles import fm_edge_tile
+    fw = sr_cap["backward_search_record_body"][0][0]
+    lat = bench_fm.step_latency_ms(fw, idx.joined)
+    side_bytes = lambda f: f.side.numel() * 4
+    log(f"fm_walk: one dependent LF step {lat * 1e3:.3f} us (a warp of "
+        f"lanes walking 2048 characters)")
+    shapes = []
+
+    def add(shape, run, lanes_steps, bnd):
+        """One shape's entry from its hold() run, the LF steps of each
+        lane and its bound function of (steps, lanes)."""
+        steps, P = int(lanes_steps.sum()), int(lanes_steps.shape[0])
+        r = summary([run], bnd(steps, P))
+        floor = int(lanes_steps.max()) * lat
+        shapes.append(dict(r, shape=shape, lanes=P, lf_steps=steps,
+                           chain_floor_ms=floor))
+        log(f"  {shape}: {steps} LF steps in {P} lanes; bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['frac_of_bound']:.4f} of it; dependent-chain floor "
+            f"{floor:.4f} ms ({int(lanes_steps.max())} steps)")
+
+    (fm, pat, lens), _ = sr_cap["backward_search_record_body"]
+    P, L = pat.shape
+    run = hold(f"fm_walk record (short-read stage 1): {P} lanes x {L} steps",
+               None, lambda _: dfm.backward_search_record_body(fm, pat, lens),
+               lambda _: dfm.backward_search_record_body_torch(fm, pat,
+                                                               lens),
+               "fm_walk_kernel")
+    rec = dfm.backward_search_record_body(fm, pat, lens)
+    add("record_sr", run, bench_fm.walk_steps(pat, lens, *rec),
+        lambda st, p: bench_fm.walk_bound(st, p, L, "record", ceiling,
+                                          side_bytes(fm), pat.numel()))
+
+    # the ftab seed search the short-read batch ran, and one over the -N 1
+    # batch's seeds (whose exact ranges that path takes from their
+    # recorded pass)
+    (fm, pat, lens, *rest), kw = sr_cap["backward_search_body"]
+    searches = [("ftab_search_sr", fm, pat, lens,
+                 kw.get("use_ftab", rest[0] if rest else True))]
+    (fm, pat, lens), _ = n1_cap["backward_search_record_body"]
+    searches.append(("ftab_search_n1", fm, pat, lens, True))
+    for shape, fm, pat, lens, use_ftab in searches:
+        P, L = pat.shape
+        run = hold(f"fm_walk ftab search ({shape}): {P} lanes x {L}", None,
+                   lambda _: dfm.backward_search_body(fm, pat, lens,
+                                                      use_ftab),
+                   lambda _: dfm.backward_search_body_torch(fm, pat, lens,
+                                                            use_ftab),
+                   "fm_walk_kernel")
+        rec = dfm.backward_search_record_body(fm, pat, lens)
+        per = bench_fm.walk_steps(pat, lens, *rec, use_ftab=use_ftab)
+        n_ftab = (int(bench_fm.ftab_lanes(pat, lens).sum()) if use_ftab
+                  else 0)
+        add(shape, run, per,
+            lambda st, p: bench_fm.walk_bound(st, p, L, "search", ceiling,
+                                              side_bytes(fm), pat.numel(),
+                                              ftab_lanes=n_ftab))
+
+    (fm, pat, cb, pos, top, bot, n_steps), _ = sr_cap["one_mm_phase1_body"]
+    run = hold(f"fm_walk continuation (short-read 1mm): {cb.shape[0]} lanes "
+               f"x {n_steps}", None,
+               lambda _: dfm.one_mm_phase1_body(fm, pat, cb, pos, top, bot,
+                                                n_steps),
+               lambda _: dfm.one_mm_phase1_body_torch(fm, pat, cb, pos, top,
+                                                      bot, n_steps),
+               "fm_walk_kernel")
+    pos_out = dfm.one_mm_phase1_body(fm, pat, cb, pos, top, bot, n_steps)[0]
+    add("continuation_sr", run, (pos - pos_out).to(torch.int64),
+        lambda st, p: bench_fm.walk_bound(st, p, n_steps, "cont", ceiling,
+                                          side_bytes(fm), pat.numel()))
+
+    (fm, c, top, bot), _ = sr_cap["lf_step"]
+    run = hold(f"fm_lf_step (short-read phase-0 grid): {c.shape[0]} lanes",
+               None, lambda _: dfm.lf_step(fm, c, top, bot),
+               lambda _: dfm.lf_step_torch(fm, c, top, bot),
+               "fm_lf_step_kernel")
+    lf = dict(summary([run], bench_fm.lf_step_bound(c, top, bot, ceiling,
+                                                    side_bytes(fm))),
+              lanes=int(c.shape[0]),
+              lf_steps=int(((c <= 3) & (top < bot)).sum()))
+
+    # exact on the edge tiles, both directions of the genome
+    edge_err = 0
+    for name, text in (("fw", idx.joined), ("mirror", idx.joined[::-1])):
+        d = getattr(idx, name)
+        dev_fm = dfm.to_device(d, "cuda")
+        tile = [torch.from_numpy(a).cuda()
+                for a in fm_edge_tile(9, text, d.n, d.primary)]
+        tpat, tlens, tc, ttop, tbot = tile
+        lanes = torch.arange(tlens.shape[0], dtype=torch.int32,
+                             device="cuda")
+        calls = [
+            (dfm.lf_step, dfm.lf_step_torch, (tc, ttop, tbot)),
+            (dfm.backward_search_record_body,
+             dfm.backward_search_record_body_torch, (tpat, tlens)),
+            (dfm.one_mm_phase1_body, dfm.one_mm_phase1_body_torch,
+             (tpat, lanes, tlens - 1, ttop, tbot, 48))]
+        calls += [(lambda f, *a, u=u: dfm.backward_search_body(f, *a, u),
+                   lambda f, *a, u=u: dfm.backward_search_body_torch(f, *a,
+                                                                     u),
+                   (tpat, tlens)) for u in (False, True)]
+        for kern, plain, args in calls:
+            got, want = kern(dev_fm, *args), plain(dev_fm, *args)
+            edge_err = max([edge_err] + [int((g - w).abs().max())
+                                         for g, w in zip(got, want)])
+    log(f"fm_walk and fm_lf_step on the edge tiles (fw and mirror): "
+        f"max_abs_err={edge_err}")
+    main = shapes[0]
+    walk = dict({k: main[k] for k in ("ms", "event_ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "frac_of_bound", "chain_floor_ms")},
+                max_abs_err=max([edge_err] + [s["max_abs_err"]
+                                              for s in shapes]),
+                step_latency_ms=lat, shapes=shapes)
+    lf["max_abs_err"] = max(lf["max_abs_err"], edge_err)
+    n, mix = kernels.loop_mix("fm_walk_kernel")
+    walk["loop_sass_instructions"] = n
+    log(f"fm_walk largest loop (SASS): {n} instructions {mix}")
+    out = {"fm_walk": walk, "fm_lf_step": lf}
+    for name, r in out.items():
+        log(f"{name}: {r['ms']:.4f} ms against a bound of "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['frac_of_bound']:.4f} of it")
+        if r["max_abs_err"] != 0:
+            raise RuntimeError(f"{name}: kernel disagrees with its plain "
+                               f"version (max_abs_err {r['max_abs_err']})")
+    return out
+
+
+def sam_lines(recs, ref_names):
+    """SAM lines of a batch's records: a lazy record view or, from the host
+    path and under -k/-a, a list (secondary records after their
+    primary)."""
+    from bowtie2_server_tpu_torch.io.sam import sam_record
+    items = recs if isinstance(recs, list) else [recs[i]
+                                                for i in range(len(recs))]
+    return [sam_record(r, ref_names) for r in items]
+
+
+def parity_unpaired(label, idx, pol, names, seqs, quals, results=True):
+    """One batch through UnpairedAligner on the card and on the CPU, which
+    must give identical SAM lines and, with `results`, identical decoded
+    batch results of the fused pipeline. Returns (the card run's kernel
+    launches, its SAM line count)."""
+    import torch
     from bowtie2_server_tpu_torch.align.candgen import BatchResult
     from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner
     from bowtie2_server_tpu_torch.io.fastq import make_batch
-    from bowtie2_server_tpu_torch.io.sam import sam_record
-    names, seqs, quals, _ = make_reads(13, contigs, n)
-    sams, results = {}, {}
+    from bowtie2_server_tpu_torch.ops import kernels
+    sams, res = {}, {}
     for dev in ("cuda", "cpu"):
-        al = UnpairedAligner(idx, device=dev)
+        al = UnpairedAligner(idx, policy=pol, device=dev)
         batch = make_batch(names, seqs, quals)
-        results[dev] = al.collect(batch).res
+        if results:
+            res[dev] = al.collect(batch).res
+        kernels.reset_launches()
         recs = al.align_batch(batch)
-        sams[dev] = [sam_record(recs[i], idx.ref_names) for i in range(n)]
-    for name in BatchResult.__slots__:
-        a, b = getattr(results["cuda"], name), getattr(results["cpu"], name)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        sams[dev] = sam_lines(recs, idx.ref_names)
+    for name in BatchResult.__slots__ if results else ():
+        a, b = getattr(res["cuda"], name), getattr(res["cpu"], name)
         same = (np.array_equal(a, b) if isinstance(a, np.ndarray)
                 else a == b)
         if not same:
-            raise RuntimeError(f"CUDA and CPU differ in BatchResult.{name}")
+            raise RuntimeError(f"{label}: CUDA and CPU differ in "
+                               f"BatchResult.{name}")
     diff = sum(a != b for a, b in zip(sams["cuda"], sams["cpu"]))
-    if diff:
-        raise RuntimeError(f"{diff} SAM lines differ between CUDA and CPU")
-    log(f"CUDA vs CPU: {n} reads, BatchResult fields and SAM lines "
-        f"identical")
+    if diff or len(sams["cuda"]) != len(sams["cpu"]):
+        raise RuntimeError(f"{label}: {diff} SAM lines differ between CUDA "
+                           f"and CPU ({len(sams['cuda'])} and "
+                           f"{len(sams['cpu'])} lines)")
+    log(f"CUDA vs CPU, {label}: {len(names)} reads, "
+        f"{'BatchResult fields and ' if results else ''}"
+        f"{len(sams['cuda'])} SAM lines identical; card launches {launches}")
+    return launches, len(sams["cuda"])
+
+
+def phase_parity(idx, contigs, n=2048):
+    from bowtie2_server_tpu_torch.align.pipeline import SearchPolicy
+    names, seqs, quals, _ = make_reads(13, contigs, n)
+    parity_unpaired("main path", idx, SearchPolicy(), names, seqs, quals)
+
+
+def phase_parity_short(idx, contigs, n=2048):
+    """The general short-read shape, CUDA against CPU: reads of 18-60 bp,
+    and 100 bp reads under -N 1."""
+    from bowtie2_server_tpu_torch.align.pipeline import SearchPolicy
+    for label, pol, reads in (
+            ("reads of 18-60 bp", SearchPolicy(),
+             make_mixed_reads(16, contigs, n)),
+            ("-N 1", SearchPolicy(n_seed_mms=1),
+             make_reads(17, contigs, n)[:3])):
+        launches, _ = parity_unpaired(label, idx, pol, *reads)
+        if launches["fm_walk"] == 0:
+            raise RuntimeError(f"{label}: the card run never launched "
+                               f"fm_walk")
+
+
+def make_repeat_genome(seed: int, chrom_len=500_000, unit_len=100,
+                       copies=300):
+    """tests/test_large_k.py's shape scaled up: a random chromosome and a
+    chromosome of a unit_len-base unit planted `copies` times between
+    random 50-base spacers. Returns (FASTA text, chromosome codes, unit
+    codes)."""
+    rng = np.random.default_rng(seed)
+    chrom = rng.integers(0, 4, chrom_len).astype(np.uint8)
+    unit = rng.integers(0, 4, unit_len).astype(np.uint8)
+    rep = np.concatenate([np.concatenate([rng.integers(0, 4, 50), unit])
+                          for _ in range(copies)]).astype(np.uint8)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    fa = (f">chr\n{bases[chrom].tobytes().decode()}\n"
+          f">rep\n{bases[rep].tobytes().decode()}\n")
+    return fa, chrom, unit
+
+
+def phase_parity_host(n=256, n_unit=16):
+    """The host path, CUDA against CPU: n reads (n_unit of them copies of
+    a unit planted 300 times, some with a substitution) under -k 2000 and
+    -a, and an index of the same genome without its mirror direction."""
+    from bowtie2_server_tpu_torch.align.pipeline import (ALL_HITS,
+                                                         SearchPolicy)
+    from bowtie2_server_tpu_torch.index.build import build_index
+    fa, chrom, unit = make_repeat_genome(44)
+    names, seqs, quals, _ = make_reads(18, [chrom], n - n_unit)
+    rng = np.random.default_rng(19)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    for k in range(n_unit):
+        u = unit.copy()
+        if k % 2:
+            u[rng.integers(0, len(u))] ^= 1
+        names.append(f"u{k}")
+        seqs.append(bases[u].tobytes())
+        quals.append(b"I" * len(u))
+    full = build_index(fa)
+    for label, khits in (("-k 2000", 2000), ("-a", ALL_HITS)):
+        pol = SearchPolicy(khits=khits, mhits=0, msample=False)
+        launches, n_lines = parity_unpaired(f"host path, {label}", full, pol,
+                                            names, seqs, quals, results=False)
+        if launches["fm_walk"] == 0 or n_lines < n + 100 * n_unit:
+            raise RuntimeError(f"{label}: fm_walk launches "
+                               f"{launches['fm_walk']}, {n_lines} SAM lines")
+    launches, _ = parity_unpaired(
+        "host path, an index without its mirror direction",
+        build_index(fa, both_directions=False), SearchPolicy(), names, seqs,
+        quals, results=False)
+    if launches["fm_walk"] == 0:
+        raise RuntimeError("the mirror-less host path never launched "
+                           "fm_walk")
 
 
 def phase_parity_paired(pidx, chroms, n=512):
@@ -823,8 +1259,9 @@ def write_fastq(path: Path, names, seqs, quals):
 def run_cli(args, n_refs: int, n_recs: int, read_len: int, device: str):
     """`python -m bowtie2_server_tpu_torch align <args>` into a SAM file,
     which must be well-formed: a header with n_refs @SQ lines and n_recs
-    records of read_len bases. Returns (records as field lists, the
-    summary's "overall alignment rate" line, seconds)."""
+    primary records (and any secondary ones) of read_len bases. Returns
+    (records as field lists, the summary's "overall alignment rate" line,
+    seconds)."""
     sam = WORK / "out.sam"
     t0 = time.time()
     r = subprocess.run(
@@ -839,8 +1276,10 @@ def run_cli(args, n_refs: int, n_recs: int, read_len: int, device: str):
     if not head or not head[0].startswith("@HD") or \
             sum(h.startswith("@SQ") for h in head) != n_refs:
         raise RuntimeError("SAM header malformed")
-    if len(recs) != n_recs:
-        raise RuntimeError(f"SAM has {len(recs)} records, expected {n_recs}")
+    n_prim = sum(not int(f[1]) & 0x100 for f in recs)
+    if n_prim != n_recs:
+        raise RuntimeError(f"SAM has {n_prim} primary records, expected "
+                           f"{n_recs}")
     for f in recs:
         if len(f) < 11 or not f[1].isdigit() or not f[3].isdigit() \
                 or not _CIGAR.match(f[5]) or len(f[9]) != read_len \
@@ -862,6 +1301,24 @@ def phase_cli(base: Path, contigs, n=10_000, device="cuda"):
         raise RuntimeError(f"only {n_al}/{n} CLI records aligned")
     log(f"CLI: {n} reads -> well-formed SAM in {sec:.1f} s (process "
         f"included); {n_al} aligned; {summ}")
+
+
+def phase_cli_opts(base: Path, contigs, n=10_000, device="cuda"):
+    """The CLI with -N 1 -L 20 and with -k 5 on n reads."""
+    names, seqs, quals, _ = make_reads(14, contigs, n)
+    fq = WORK / "reads.fq"
+    write_fastq(fq, names, seqs, quals)
+    for opts in (["-N", "1", "-L", "20"], ["-k", "5"]):
+        recs, summ, sec = run_cli(["-x", str(base), "-U", str(fq), *opts],
+                                  len(contigs), n, READ_LEN, device)
+        prim = [f for f in recs if not int(f[1]) & 0x100]
+        n_al = sum(not int(f[1]) & 4 for f in prim)
+        if n_al < 0.95 * n:
+            raise RuntimeError(f"{' '.join(opts)}: only {n_al}/{n} CLI "
+                               f"records aligned")
+        log(f"CLI {' '.join(opts)}: {n} reads -> well-formed SAM in "
+            f"{sec:.1f} s (process included); {n_al} aligned, "
+            f"{len(recs) - len(prim)} secondary records; {summ}")
 
 
 def phase_cli_paired(pbase: Path, chroms, n=5000, device="cuda"):
@@ -925,24 +1382,36 @@ def main(argv=None):
     times = phase_kernels(contigs)
     dp_launches = phase_dp_bench()
     launches, main_res = phase_main(idx, contigs)
+    sr_launches, sr_res, sr_cap = phase_short(idx, contigs)
+    n1_res, n1_cap = phase_n1(idx, contigs)
+    times.update(phase_fm_kernels(
+        idx, sr_cap, n1_cap, times["alu_probe"]["ceiling_ops_per_s"]))
+    del sr_cap, n1_cap              # their tensors: the card's memory back
     pe_launches, pe_res = phase_paired(pidx, chroms)
     phase_parity(idx, contigs)
+    phase_parity_short(idx, contigs)
+    phase_parity_host()
     phase_parity_paired(pidx, chroms)
     wide_launches = phase_parity_wide(idx, contigs)
     phase_cli(base, contigs)
+    phase_cli_opts(base, contigs)
     phase_cli_paired(pbase, chroms)
     # each kernel's launches on its path: the unpaired main path for the
     # banded and rectangle kernels (the paired path is checked above), the
-    # --dpad 32 batch for the wide-band kernel, the DP microbench for the
-    # probe
+    # short-read path for the FM kernels, the --dpad 32 batch for the
+    # wide-band kernel, the DP microbench for the probe
     path_launches = dict(sw_banded=launches["sw_banded"],
                          sw_banded_general=launches["sw_banded_general"],
                          sw=launches["sw"],
                          sw_banded_wide=wide_launches["sw_banded_wide"],
-                         alu_probe=dp_launches["alu_probe"])
+                         alu_probe=dp_launches["alu_probe"],
+                         fm_walk=sr_launches["fm_walk"],
+                         fm_lf_step=sr_launches["fm_lf_step"])
     log(f"launches on the paired path: {pe_launches}")
-    log(json.dumps({"paths": {"unpaired": main_res, "paired": pe_res}}))
-    # no PyTorch call computes any of these functions: library_ms is null
+    log(json.dumps({"paths": {"unpaired": main_res, "paired": pe_res,
+                              "short": sr_res, "n1": n1_res}}))
+    # no PyTorch call computes any of these functions (a DP, the probe's
+    # chain, an FM walk): library_ms is null
     kern = [dict(name=name, route="cuda",
                  source=f"bowtie2_server_tpu_torch/ops/csrc/{src}",
                  replaces=tpu, launches=path_launches[name], library_ms=None,

@@ -24,10 +24,11 @@ from bowtie2_server_tpu_torch.align import candgen as tcg  # noqa: E402
 
 
 def _to_port(didx, dkm, cfg):
+    fm = lambda d: {k: np.asarray(v) for k, v in d._asdict().items()}
     tdidx, tdkm = convert.state_from_numpy(
         {k: np.asarray(v) for k, v in didx._asdict().items()
-         if k in convert.INDEX_FIELDS},
-        {k: np.asarray(v) for k, v in dkm._asdict().items()}, "cpu")
+         if k in convert.INDEX_FIELDS}, fm(dkm), "cpu",
+        fw=fm(didx.fw), mirror=fm(didx.mirror))
     return tdidx, tdkm, convert.cfg_from_fields(cfg._asdict())
 
 
@@ -160,23 +161,20 @@ def test_nonzero_fixed_matches_jnp_nonzero():
 
 
 def test_dispatch_refuses_unported_shapes(genome, monkeypatch):
-    from bowtie2_server_tpu_torch.align.pipeline import (
-        SearchPolicy as TPol, UnpairedAligner as TAl)
+    """What the port still refuses: multi-device meshes (ROADMAP Queue A
+    item 13) and big indexes (item 12), both at the aligner and in
+    convert.cfg_from_fields. Short reads, -N 1 and -k above 1024 run (see
+    tests/test_torch_short.py)."""
+    from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner as TAl
     from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.ops import fm as tfm
     _, idx = genome
     short = make_batch(["s"], [b"ACGTACGTAC"], [b"IIIIIIIIII"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TAl(idx, device="cpu").align_batch(short)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TAl(idx, policy=TPol(n_seed_mms=1), device="cpu").align_batch(short)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TAl(idx, policy=TPol(khits=2000), device="cpu").align_batch(short)
     with pytest.raises(NotImplementedError, match="item 13"):
         TAl(idx, mesh=object(), device="cpu").align_batch(short)
-    cfg = {"sw": {}, "has_short": True}
-    with pytest.raises(NotImplementedError, match="item 10"):
-        convert.cfg_from_fields(cfg)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        convert.cfg_from_fields({"sw": {}, "big": True})
     # an index past the threshold takes the big layout, not ported
-    monkeypatch.setattr(tcg, "BIG_THRESHOLD", idx.n)
+    monkeypatch.setattr(tfm, "BIG_THRESHOLD", idx.n)
     with pytest.raises(NotImplementedError, match="item 12"):
         TAl(idx, device="cpu").align_batch(short)

@@ -14,8 +14,8 @@ from bowtie2_server_tpu_torch.ops import alu_probe, kernels  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw as tsw  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw_banded as tsb  # noqa: E402
 from torch_tiles import (CFGS, RECT_CFGS, LARGE_SCORE_CFG,  # noqa: E402
-                         banded_edge_tile, banded_tile, rect_tie_tile,
-                         rect_tile)
+                         banded_edge_tile, banded_tile, fm_edge_tile,
+                         fm_genome, rect_tie_tile, rect_tile)
 
 
 @pytest.fixture
@@ -102,6 +102,58 @@ def test_alu_probe_equals_plain(cuda_device):
     assert torch.equal(got, alu_probe.alu_chain_torch(x, 100))
 
 
+@pytest.fixture(scope="module")
+def fm_index():
+    """An index of fm_genome's text and a copy of its first 3 kbp."""
+    from bowtie2_server_tpu_torch.index.build import build_index
+    from bowtie2_server_tpu_torch.utils import dna
+    g = fm_genome(12)
+    return build_index(f">g\n{dna.decode(g)}\n>h\n{dna.decode(g[:3000])}\n")
+
+
+def _fm_run(fm, dev, pat, lens, c, top, bot):
+    """Every FM wrapper on the edge tile's inputs on `dev`."""
+    from bowtie2_server_tpu_torch.ops import fm as tfm
+    T = lambda a: torch.from_numpy(a).to(dev)
+    out = {"lf": tfm.lf_step(fm, T(c), T(top), T(bot))}
+    for ftab in (False, True):
+        out[f"search_ftab{ftab}"] = tfm.backward_search_body(
+            fm, T(pat), T(lens), ftab)
+    tops, bots = tfm.backward_search_record_body(fm, T(pat), T(lens))
+    out["record"] = (tops, bots)
+    res = tfm.one_mm_phase0_body(fm, T(pat), T(lens), T(lens // 2), tops,
+                                 bots, 0, 32, 4096)
+    out["phase0"] = res
+    out["cont"] = tfm.one_mm_phase1_body(fm, T(pat), *res[:1], *res[2:5],
+                                         40)
+    # continuation from the tile's odd states: empty, inverted, full
+    # ranges, the $ row, positions 0 and past the start
+    lanes = np.arange(len(lens), dtype=np.int32)
+    out["cont_edges"] = tfm.one_mm_phase1_body(
+        fm, T(pat), T(lanes), T(lens - 1), T(top), T(bot), 48)
+    return out
+
+
+@pytest.mark.parametrize("direction", ["fw", "mirror"])
+def test_fm_kernels_equal_plain(direction, fm_index, cuda_device):
+    """fm_walk (search with and without the ftab, record, continuation)
+    and fm_lf_step against the plain torch versions on the edge tile."""
+    from bowtie2_server_tpu_torch.ops import fm as tfm
+    d = getattr(fm_index, direction)
+    text = fm_index.joined if direction == "fw" else fm_index.joined[::-1]
+    args = fm_edge_tile(7, text, d.n, d.primary)
+    want = _fm_run(tfm.to_device(d, "cpu"), "cpu", *args)
+    w0, l0 = kernels.LAUNCHES["fm_walk"], kernels.LAUNCHES["fm_lf_step"]
+    got = _fm_run(tfm.to_device(d, cuda_device), cuda_device, *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fm_walk"] == w0 + 5
+    assert kernels.LAUNCHES["fm_lf_step"] == l0 + 2
+    for key in want:
+        for g, w in zip(got[key], want[key]):
+            assert torch.equal(g.cpu(), w), key
+    assert int(want["phase0"][5]) > 0      # some branches survived
+
+
 def _workload(seed=3, n=3000):
     """A 60 kbp chromosome plus 150 contigs of 1 kbp; every other read
     starts within 40 bases of a contig end, so one batch has more than 128
@@ -130,35 +182,52 @@ def _workload(seed=3, n=3000):
     return idx, [f"r{i}" for i in range(n)], seqs, [b"I" * 100] * n
 
 
+# the bands of --dpad 15 (the default), 16 and 32: K = 64 and 128 on the
+# register kernel, 256 on the wide-band kernel (band_for gives no band
+# below 64, so K = 32 is held on tiles only)
+BANDS = {"K64": 15, "K128": 16, "K256": 32}
+
+
+def _sams(recs, names):
+    from bowtie2_server_tpu_torch.io.sam import sam_record
+    items = recs if isinstance(recs, list) else [recs[i]
+                                                for i in range(len(recs))]
+    return [sam_record(r, names) for r in items]
+
+
+@pytest.mark.parametrize("band", list(BANDS))
 @pytest.mark.parametrize("local", [False, True], ids=["e2e", "local"])
-def test_aligner_cuda_equals_cpu(local, cuda_device):
+def test_aligner_cuda_equals_cpu(local, band, cuda_device):
     from bowtie2_server_tpu_torch.align.pipeline import (SearchPolicy,
                                                          UnpairedAligner)
     from bowtie2_server_tpu_torch.io.fastq import make_batch
-    from bowtie2_server_tpu_torch.io.sam import sam_record
     from bowtie2_server_tpu_torch.utils.presets import preset_params
     idx, names, seqs, quals = _workload()
     if local:      # local winners take the host traceback: fewer reads
         names, seqs, quals = names[:600], seqs[:600], quals[:600]
     sc, pol = preset_params(None, local)
+    pol = SearchPolicy(**dict(pol, maxhalf=BANDS[band]))
     sams = {}
     for dev in ("cpu", cuda_device):
         kernels.reset_launches()
-        al = UnpairedAligner(idx, scoring=sc, policy=SearchPolicy(**pol),
-                             device=dev)
+        al = UnpairedAligner(idx, scoring=sc, policy=pol, device=dev)
+        assert f"K{al.band}" == band
         recs = al.align_batch(make_batch(names, seqs, quals))
-        sams[str(dev)] = [sam_record(recs[i], idx.ref_names)
-                          for i in range(len(names))]
+        sams[str(dev)] = _sams(recs, idx.ref_names)
     assert sams["cuda"] == sams["cpu"]
-    assert kernels.LAUNCHES["sw_banded"] >= 1
+    which = "sw_banded" if band != "K256" else "sw_banded_wide"
+    assert kernels.LAUNCHES[which] >= 1
     if not local:
         assert kernels.LAUNCHES["sw"] >= 1
 
 
-def test_paired_cuda_equals_cpu(cuda_device):
+@pytest.mark.parametrize("band", ["K64", "K128"])
+@pytest.mark.parametrize("local", [False, True], ids=["e2e", "local"])
+def test_paired_cuda_equals_cpu(local, band, cuda_device):
     """Pairs of the workload's reads (mate 2 reverse-complemented 200-400
     bases downstream of mate 1 on the 60 kbp chromosome; every 10th mate 2
-    with a substitution every 16 bases, so mate rescue runs)."""
+    with a substitution every 16 bases, so mate rescue runs), end-to-end
+    and --local, at the bands of --dpad 15 and 16."""
     from bowtie2_server_tpu_torch.align.paired import PairedAligner
     from bowtie2_server_tpu_torch.io.fastq import make_batch
     from bowtie2_server_tpu_torch.io.sam import sam_record
@@ -176,15 +245,119 @@ def test_paired_cuda_equals_cpu(cuda_device):
             m2[np.arange(p % 16, 100, 16)] ^= 1
         s1.append(dna.decode(m1).encode())
         s2.append(dna.decode(m2).encode())
-    names = [f"p{i}" for i in range(500)]
-    quals = [b"I" * 100] * 500
+    from bowtie2_server_tpu_torch.align.pipeline import SearchPolicy
+    from bowtie2_server_tpu_torch.utils.presets import preset_params
+    n = 200 if local else 500     # local winners take the host traceback
+    names = [f"p{i}" for i in range(n)]
+    quals = [b"I" * 100] * n
+    sc, pol = preset_params(None, local)
+    pol = SearchPolicy(**dict(pol, maxhalf=BANDS[band]))
     sams = {}
     for dev in ("cpu", cuda_device):
         kernels.reset_launches()
-        pal = PairedAligner(idx, device=dev)
-        pairs = pal.align_batch(make_batch(names, s1, quals),
-                                make_batch(names, s2, quals))
+        pal = PairedAligner(idx, scoring=sc, policy=pol, device=dev)
+        pairs = pal.align_batch(make_batch(names, s1[:n], quals),
+                                make_batch(names, s2[:n], quals))
         sams[str(dev)] = [sam_record(r, idx.ref_names)
                           for pr in pairs for r in pr]
     assert sams["cuda"] == sams["cpu"]
     assert kernels.LAUNCHES["sw_banded"] >= 2 and kernels.LAUNCHES["sw"] >= 1
+
+
+def _short_workload(n=2000, seed=5):
+    """The workload's genome with reads of 18-60 bp (0-2 substitutions,
+    half reverse-complemented, an N in every 50th) and -N 1 reads of 60 bp
+    with a substitution inside every round-0 seed window."""
+    from bowtie2_server_tpu_torch.utils import dna
+    idx, _, _, _ = _workload(n=1)
+    rng = np.random.default_rng(seed)
+    chrom = idx.joined[: idx.ref_lens[0]]
+    short, n1 = [], []
+    for i in range(n):
+        rl = int(rng.integers(18, 61))
+        s = int(rng.integers(0, len(chrom) - rl))
+        r = chrom[s : s + rl].copy()
+        for _ in range(int(rng.integers(0, 3))):
+            r[rng.integers(0, rl)] = rng.integers(0, 4)
+        if i % 50 == 0:
+            r[rng.integers(0, rl)] = 4
+        if rng.random() < 0.5:
+            r = np.where(r < 4, 3 - r, r)[::-1]
+        short.append(dna.decode(r).encode())
+        s = int(rng.integers(0, len(chrom) - 60))
+        r = chrom[s : s + 60].copy()
+        p = int(rng.integers(2, 20))
+        r[p] = (r[p] + 1) % 4
+        n1.append(dna.decode(r).encode())
+    return idx, short, n1
+
+
+@pytest.mark.parametrize("case", ["short", "n1"])
+def test_short_shape_cuda_equals_cpu(case, cuda_device):
+    """The general short-read shape on the card: identical decoded batch
+    results and SAM for reads of 18-60 bp, and for -N 1; the FM kernels
+    launch."""
+    from bowtie2_server_tpu_torch.align.candgen import BatchResult
+    from bowtie2_server_tpu_torch.align.pipeline import (SearchPolicy,
+                                                         UnpairedAligner)
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    idx, short, n1 = _short_workload()
+    seqs = short if case == "short" else n1
+    pol = SearchPolicy(n_seed_mms=1 if case == "n1" else 0)
+    names = [f"s{i}" for i in range(len(seqs))]
+    quals = [b"I" * len(s) for s in seqs]
+    sams, results = {}, {}
+    for dev in ("cpu", cuda_device):
+        kernels.reset_launches()
+        al = UnpairedAligner(idx, policy=pol, device=dev)
+        batch = make_batch(names, seqs, quals)
+        results[str(dev)] = al.collect(batch).res
+        sams[str(dev)] = _sams(al.align_batch(batch), idx.ref_names)
+    for name in BatchResult.__slots__:
+        a, b = getattr(results["cuda"], name), getattr(results["cpu"], name)
+        assert (np.array_equal(a, b) if isinstance(a, np.ndarray)
+                else a == b), name
+    assert sams["cuda"] == sams["cpu"]
+    assert kernels.LAUNCHES["fm_walk"] >= 1
+    assert kernels.LAUNCHES["fm_lf_step"] >= 1
+    assert kernels.LAUNCHES["sw_banded"] >= 1
+
+
+@pytest.mark.parametrize("case", ["k2000", "all", "mirrorless"])
+def test_host_path_cuda_equals_cpu(case, cuda_device):
+    """The host path on the card (-k 2000 and -a on a genome with a
+    60-mer planted 40 times; an index without its mirror direction):
+    identical SAM."""
+    from bowtie2_server_tpu_torch.align.pipeline import (ALL_HITS,
+                                                         SearchPolicy,
+                                                         UnpairedAligner)
+    from bowtie2_server_tpu_torch.index.build import build_index
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.utils import dna
+    idx, short, _ = _short_workload(n=200)
+    rng = np.random.default_rng(6)
+    unit = rng.integers(0, 4, 60).astype(np.uint8)
+    rep = np.concatenate([np.concatenate([rng.integers(0, 4, 50), unit])
+                          for _ in range(40)]).astype(np.uint8)
+    chrom = idx.joined[: idx.ref_lens[0]]
+    fa = f">chr\n{dna.decode(chrom)}\n>rep\n{dna.decode(rep)}\n"
+    idx = build_index(fa, both_directions=case != "mirrorless")
+    seqs = [dna.decode(unit).encode()] + short
+    khits = {"k2000": 2000, "all": ALL_HITS, "mirrorless": 1}[case]
+    pol = SearchPolicy(khits=khits, **(dict(mhits=0, msample=False)
+                                       if khits > 1 else {}))
+    names = [f"h{i}" for i in range(len(seqs))]
+    quals = [b"I" * len(s) for s in seqs]
+    sams = {}
+    for dev in ("cpu", cuda_device):
+        kernels.reset_launches()
+        al = UnpairedAligner(idx, policy=pol, device=dev)
+        assert (al.candgen is None) == (case == "mirrorless")
+        sams[str(dev)] = _sams(al.align_batch(make_batch(names, seqs,
+                                                         quals)),
+                               idx.ref_names)
+    assert sams["cuda"] == sams["cpu"]
+    assert kernels.LAUNCHES["fm_walk"] >= 1
+    assert kernels.LAUNCHES["sw_banded"] >= 1
+    if khits > 1:
+        assert sum(ln.startswith("h0\t") for ln in sams["cpu"]) == 40

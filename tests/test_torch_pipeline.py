@@ -175,7 +175,9 @@ def test_cli_same_sam_as_jax_cli(workloads, tmp_path, monkeypatch, capsys,
 
 
 def test_cli_refuses_other_options(capsys):
+    """An option the port's CLI does not take yet (-M, the -M sampling
+    bound) is refused, naming the ROADMAP item that ports it."""
     from bowtie2_server_tpu_torch.__main__ import main as port_main
     with pytest.raises(SystemExit) as e:
-        port_main(["align", "-x", "i", "-U", "r.fq", "-k", "5"])
+        port_main(["align", "-x", "i", "-U", "r.fq", "-M", "5"])
     assert "ROADMAP Queue A item 14" in str(e.value)

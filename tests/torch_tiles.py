@@ -179,3 +179,60 @@ def rect_tie_tile(seed, lq_pad, lc, p=P):
     mm = np.where(np.arange(p) % 2 == 0, 6, rng.integers(2, 7, (lq_pad, p)))
     return [np.ascontiguousarray(a, np.int32)
             for a in (rd, mm, lens, ref, reflens)]
+
+
+def fm_genome(seed, n=20_000):
+    """Codes of a genome for the FM tiles: random, with a 300-base unit
+    copied 8 times (ranges of many rows) and a 100-base run of one base."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4, n).astype(np.uint8)
+    unit = g[:300].copy()
+    for k in range(1, 9):
+        g[k * 1000 : k * 1000 + 300] = unit
+    g[15_000:15_100] = 2
+    return g
+
+
+def fm_edge_tile(seed, text, n_rows, primary, p=P + 1, lq=48):
+    """Inputs at the edges of the FM walks over an index of `text` (codes
+    0..3) with n_rows BWT rows and its $ row at `primary`: patterns [p, lq]
+    uint8 and lengths [p] int32 — substrings of the text (from the repeat,
+    from the text's end, so that LF passes the $ row), random ones (empty
+    ranges), an N at a random place or among the last 10 characters (no
+    ftab jump), lengths 0, 1, 9, 10, 11 and lq; and one LF step's (c, top,
+    bot) [p] int32 — rows at and beside the 64-row block boundaries, the $
+    row, 0 and n_rows, empty (top == bot) and inverted ranges, and c of 4
+    and 5 (N, pad)."""
+    rng = np.random.default_rng(seed)
+    pat = np.full((p, lq), 5, np.uint8)
+    lens = rng.integers(1, lq + 1, p)
+    lens[:8] = (0, 1, 9, 10, 11, lq, lq, 0)
+    for q in range(p):
+        n = int(lens[q])
+        kind = q % 6
+        if kind == 1:                         # from the repeat
+            s = int(rng.integers(1000, 1300 - min(n, 300)))
+        elif kind == 2:                       # the text's end
+            s = len(text) - n
+        else:
+            s = int(rng.integers(0, len(text) - n + 1))
+        r = text[s : s + n].copy()
+        if kind == 3:                         # random: mostly empty
+            r = rng.integers(0, 4, n).astype(np.uint8)
+        elif kind == 4 and n:                 # an N anywhere
+            r[rng.integers(0, n)] = 4
+        elif kind == 5 and n:                 # an N among the last 10
+            r[max(0, n - 1 - int(rng.integers(0, 10)))] = 4
+        pat[q, :n] = r
+    rows = np.array([0, 1, 62, 63, 64, 65, 127, 128, 129, primary - 1,
+                     primary, primary + 1, n_rows - 65, n_rows - 64,
+                     n_rows - 1, n_rows])
+    rows = np.clip(rows, 0, n_rows)
+    top = np.resize(rows, p)
+    width = np.resize([0, 1, 2, 5, 64, -1, 200], p)
+    bot = np.clip(top + width, 0, n_rows)
+    top[-16:] = rng.integers(0, n_rows, 16)
+    bot[-16:] = np.minimum(top[-16:] + rng.integers(0, 300, 16), n_rows)
+    c = np.resize(np.arange(6), p)
+    return (pat, lens.astype(np.int32),
+            *(np.ascontiguousarray(a, np.int32) for a in (c, top, bot)))
