@@ -1,5 +1,6 @@
 """Device-resident candidate generation + DP + selection — the hot path.
-Port of bowtie2_server_tpu/align/candgen.py (small indexes, one device).
+Port of bowtie2_server_tpu/align/candgen.py (small and big indexes, one
+device).
 
 One call of `fused_pipeline` runs a whole search batch on the device (ref:
 the reference's hot loop, bt2_search.cpp:3050-4197 multiseedSearchWorker +
@@ -16,7 +17,8 @@ aligner_sw_driver.cpp:756 SwDriver::extendSeeds):
      lanes; the general shape searches per-read truncated seeds in the FM
      index, with `-N 1` per-seed substitution branches (ref:
      aligner_seed.cpp:668 searchSeedBi)
-  4. position resolution of every surviving range — one gather
+  4. position resolution of every surviving range — one gather (small
+     indexes), or the walk-left over the sampled SA (big indexes)
   5. candidate dedup on (lane, diagonal) via one sort of a packed key
      (ref: SwDriver seenDiags, aligner_sw_driver.h:300)
   6. banded affine-gap DP over every interior candidate — the CUDA kernel
@@ -31,8 +33,14 @@ substitution (nseeds >= ceil(Ls/ival)+1), so exact and 1-substitution hits
 come out of the seed lookup + DP without an FM pass; and the general
 short-read shape (`cfg.has_short`: a short read anywhere in the batch, or
 `-N 1`), whose FM walks run the CUDA kernels of ops/csrc/fm.cu on the card
-(ops/fm.py). Big indexes and multi-device meshes raise
-NotImplementedError (ROADMAP Queue A items 12 and 13).
+(ops/fm.py). A big index (docs/BIGINDEX.md) always takes the general shape
+(no k-mer table beside it on the device): its rows and offsets are uint32
+(ops/fm.py's row convention; here widened to int64 values), and its
+diagonals carry a static bias BIAS = L + K so that they stay non-negative
+in uint32 as in the JAX package, whose 32-bit wraparound the int64 code
+reproduces where it reaches the output (the window start of a padding
+candidate). Multi-device meshes raise NotImplementedError (ROADMAP Queue A
+item 13).
 
 Everything is fixed-shape: hit, element and candidate sets are compacted
 to static capacities with overflow counters (no host synchronisation
@@ -49,6 +57,7 @@ import torch
 
 from ..index import kmer as kmod
 from ..ops import fm as dfm
+from ..ops.fm import M32
 from ..ops.fm import nonzero_fixed as _nonzero_fixed
 from ..ops.sw import NEG_INF, SwConfig
 from ..ops.sw_banded import banded_dp
@@ -98,6 +107,9 @@ class CandGenCfg(NamedTuple):
     seed_mms: int = 0           # -N: in-seed substitutions (general shape)
     no_exact_up: bool = False   # --no-exact-upfront
     no_1mm_up: bool = False     # --no-1mm-upfront
+    big: bool = False           # big index: uint32 rows, walk-left
+                                # resolution (its sampling exponent is
+                                # the index's), biased diagonals
     pack5: bool = False         # compact 5-row output layout of width
                                 # C_max+128 (vs the full 7 x C_max):
                                 # L<=256, K<=256, B <= 2^18
@@ -109,8 +121,8 @@ class DeviceIndex(NamedTuple):
     joined: torch.Tensor        # [n] uint8 packed unambiguous text
     joined_words: torch.Tensor  # [rows, 8] int64 (uint32 words) — 128
                                 # bases per row
-    run_starts: torch.Tensor    # [R] int32 unambiguous-run joined starts
-    run_ends: torch.Tensor      # [R] int32 run joined ends
+    run_starts: torch.Tensor    # [R] int64 unambiguous-run joined starts
+    run_ends: torch.Tensor      # [R] int64 run joined ends
     fw: dfm.DeviceFm | None = None
     mirror: dfm.DeviceFm | None = None
 
@@ -133,9 +145,9 @@ def make_device_index(idx, device, fw=None, mirror=None) -> DeviceIndex:
     return DeviceIndex(
         joined=put(idx.joined),
         joined_words=put(_pack_joined_words(idx.joined).astype(np.int64)),
-        run_starts=put(idx.run_joined_start.astype(np.int32)),
+        run_starts=put(idx.run_joined_start.astype(np.int64)),
         run_ends=put(np.append(idx.run_joined_start[1:],
-                               idx.n).astype(np.int32)),
+                               idx.n).astype(np.int64)),
         fw=fw, mirror=mirror)
 
 
@@ -202,12 +214,6 @@ def _const(vals, dev):
     return t.to(dev)
 
 
-def _wrap32(x):
-    """int64 holding a 32-bit pattern -> int32 with that bit pattern."""
-    x = x & 0xFFFFFFFF
-    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
-
-
 # meta word 0 bit layout
 _LEN_BITS = 20
 _F_ACT_FW = 1 << 20
@@ -238,6 +244,10 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
     dev = meta.device
     i32 = torch.int32
     n_text = didx.joined.shape[0]
+    # big index: diagonals biased to stay non-negative in uint32 (module
+    # doc); rows from the FM ops are widened to int64 values (ops/fm.py)
+    BIAS = cfg.L + cfg.K if cfg.big else 0
+    wide = dfm.widen
 
     def ar(n, dtype=i32):
         return torch.arange(n, dtype=dtype, device=dev)
@@ -328,7 +338,7 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
         # substitution branches ----
         tops, bots = dfm.backward_search_record_body(didx.fw, both_u8, lens2)
         s_ex = lens2.clamp(0, L).to(torch.int64)
-        et, eb = tops[s_ex, lane2], bots[s_ex, lane2]
+        et, eb = wide(tops[s_ex, lane2]), wide(bots[s_ex, lane2])
         exact_ok = act2 & (et < eb)
         exact_cnt = torch.where(exact_ok, eb - et, 0).to(
             torch.int64).clamp_max(1 << 30)
@@ -349,6 +359,7 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
                     cfg.chunk_w, cfg.k1)
                 posf, topf, botf = dfm.one_mm_phase1_body(
                     fm, pat, cb, pos, top, bot, L // 2 + 2)
+                topf, botf = wide(topf), wide(botf)
                 ok = (cb >= 0) & (posf < 0) & (topf < botf)
                 outs.append((cb, topf, botf, ok))
                 max_cnt = torch.maximum(max_cnt, count)
@@ -413,7 +424,7 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
                 tops_s, bots_s = dfm.backward_search_record_body(
                     didx.fw, pat_all, slen_act)
                 ent = (slen_act.to(torch.int64), ar(NP, torch.int64))
-                stop, sbot = tops_s[ent], bots_s[ent]
+                stop, sbot = wide(tops_s[ent]), wide(bots_s[ent])
                 empty = stop >= sbot
                 stop = torch.where(empty, 0, stop)
                 sbot = torch.where(empty, 0, sbot)
@@ -429,6 +440,7 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
                                 c * cw_s, cw_s, cfg.k1)
                         posf, topf, botf = dfm.one_mm_phase1_body(
                             fm, pats_, cb, pos1, top1, bot1, Ls + 2)
+                        topf, botf = wide(topf), wide(botf)
                         ok1 = (cb >= 0) & (posf < 0) & (topf < botf)
                         cbc = cb.clamp(0, NP - 1).to(torch.int64)
                         dep1 = dep_all[cbc]
@@ -449,8 +461,8 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
                                                  0),
                                      tops_m2, bots_m2, True, cnt_mr)
             else:
-                stop, sbot = dfm.backward_search_body(
-                    didx.fw, pat_all, slen_act, use_ftab=True)
+                stop, sbot = map(wide, dfm.backward_search_body(
+                    didx.fw, pat_all, slen_act, use_ftab=True))
 
             n_seed_ct = n_seed_ct + val_all.sum(dtype=i32)
             hit = val_all & (stop < sbot)
@@ -584,7 +596,7 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
     # hit ranges first, then their elements) ----
     r_lane = torch.cat(r_lane).to(i32)
     r_depth = torch.cat(r_depth).to(i32)
-    r_top = torch.cat(r_top).to(i32)
+    r_top = torch.cat(r_top).to(torch.int64)
     r_cnt = torch.cat(r_cnt).to(i32)
     NR = r_lane.shape[0]
     NH = cfg.NH
@@ -602,20 +614,32 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
     ridx = torch.div(sel, E, rounding_mode="floor").clamp(0, NH - 1)
     lane = h_lane[ridx]
     e_depth = h_depth[ridx]
-    row = h_top[ridx] + (sel % E).to(i32)
+    row = h_top[ridx] + sel % E
     if cfg.has_short:
         src = torch.cat(r_src)[hidx][ridx]
         is_m = (src == 1) | (src == 3)
         rl = lens[lane % B]
-        off_fw = didx.fw.sa[row.clamp(0, didx.fw.sa.shape[0] - 1)]
-        off_mr = didx.mirror.sa[row.clamp(0, didx.mirror.sa.shape[0] - 1)]
+        if cfg.big:
+            # walk-left over the sampled SA, one pass a direction (ref:
+            # walkLeft/getOffset, bt2_idx.h:1607)
+            off_fw = wide(dfm.resolve_rows_body(
+                didx.fw, dfm.narrow(row.clamp_max(didx.fw.n - 1)),
+                ~pad & ~is_m))
+            off_mr = wide(dfm.resolve_rows_body(
+                didx.mirror, dfm.narrow(row.clamp_max(didx.mirror.n - 1)),
+                ~pad & is_m))
+        else:
+            off_fw = didx.fw.sa[row.clamp(0, didx.fw.sa.shape[0] - 1)]
+            off_mr = didx.mirror.sa[row.clamp(0,
+                                              didx.mirror.sa.shape[0] - 1)]
         off = torch.where(is_m, off_mr, off_fw)
         # src 1: a whole read's mirror range; src 3: a mirror seed range
         # whose depth field carries depth + seed length
-        diag = torch.where(src == 1, n_text - off - rl,
-                           torch.where(src == 3, n_text - off - e_depth,
-                                       off - e_depth))
-        e_ok = ~pad & (diag > -rl)
+        diag = torch.where(src == 1, n_text + BIAS - off - rl,
+                           torch.where(src == 3,
+                                       n_text + BIAS - off - e_depth,
+                                       off + BIAS - e_depth))
+        e_ok = ~pad & (diag + rl > BIAS)       # diag > -rl, unbiased
     else:
         # the fast shape: every range is a seed-table range (src 2)
         n_keys = dkm.pos.shape[0]
@@ -624,16 +648,18 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
         e_ok = ~pad & (diag > -L)
 
     # ---- dedup on (lane, diag): one sort of the packed int64 key
-    # lane<<32 | (diag + 2^31), which orders like the 2-key sort ----
+    # lane<<32 | (diag + 2^31), which orders like the 2-key sort (a big
+    # index's diagonals are uint32: lane<<32 | diag) ----
+    doff = 0 if cfg.big else 1 << 31
     key_lane = torch.where(e_ok, lane, 1 << 30)
-    key = (key_lane.to(torch.int64) << 32) | (diag.to(torch.int64)
-                                              + (1 << 31))
+    key = (key_lane.to(torch.int64) << 32) | ((diag.to(torch.int64) + doff)
+                                              & M32)
     key = torch.sort(key).values
     s_lane = (key >> 32).to(i32)
-    s_diag = ((key & 0xFFFFFFFF) - (1 << 31)).to(i32)
+    s_diag = (key & M32) - doff
     prev_lane = torch.cat([torch.full((1,), -1, dtype=i32, device=dev),
                            s_lane[:-1]])
-    prev_diag = torch.cat([torch.zeros(1, dtype=i32, device=dev),
+    prev_diag = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
                            s_diag[:-1]])
     uniq = (s_lane < (1 << 30)) & ((s_lane != prev_lane)
                                    | (s_diag != prev_diag))
@@ -650,13 +676,26 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
     c_read = c_lane % B
     c_fw = c_lane < B
     c_rl = lens[c_read]
-    ws = c_diag - K // 2
     n_runs = didx.run_starts.shape[0]
-    run_i = (torch.searchsorted(didx.run_starts, c_diag.clamp_min(0),
-                                right=True) - 1).clamp(0, n_runs - 1)
-    lo = didx.run_starts[run_i]
-    hi_run = didx.run_ends[run_i]
-    interior = c_valid & (ws >= lo) & (ws + c_rl + K <= hi_run)
+    if cfg.big:
+        # biased uint32 geometry: the run bounds carry the same bias, and
+        # a padding candidate's window start wraps below 0 as in uint32
+        ws = (c_diag - K // 2) & M32
+        run_i = (torch.searchsorted(didx.run_starts + BIAS, c_diag,
+                                    right=True) - 1).clamp(0, n_runs - 1)
+        lo = didx.run_starts[run_i] + BIAS
+        hi_run = didx.run_ends[run_i] + BIAS
+        interior = (c_valid & (ws >= lo)
+                    & (((ws + c_rl + K) & M32) <= hi_run))
+        wsc = ws.clamp(BIAS, max(n_text - 1, 1) + BIAS) - BIAS
+    else:
+        ws = c_diag - K // 2
+        run_i = (torch.searchsorted(didx.run_starts, c_diag.clamp_min(0),
+                                    right=True) - 1).clamp(0, n_runs - 1)
+        lo = didx.run_starts[run_i]
+        hi_run = didx.run_ends[run_i]
+        interior = c_valid & (ws >= lo) & (ws + c_rl + K <= hi_run)
+        wsc = ws.clamp(0, max(n_text - 1, 1))
 
     Cx = cfg.C_max
     W = L + K
@@ -665,7 +704,6 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
     nw = W // 16 + 2
     n_rows = didx.joined_words.shape[0]
     nrow_g = -(-(nw + 7) // 8)
-    wsc = ws.clamp(0, max(n_text - 1, 1)).to(torch.int64)
     r0 = wsc >> 7
     woff = (wsc >> 4) & 7
     sh = wsc & 15
@@ -685,6 +723,8 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
                              mm_c.T.contiguous(), lens_c.contiguous(),
                              band.T.contiguous())
     c_end = ws + bi + bk
+    if cfg.big:
+        c_end = c_end & M32
     c_score = torch.where(interior, best, NEG_INF)
 
     # ---- center-diagonal ungapped stats: a winner is certified ungapped
@@ -718,9 +758,14 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
     sc = torch.where(sel_ok, c_score, NEG_INF)
     best_sc = _seg_max(sc, c_read, B)
     is_bs = sel_ok & (c_score == best_sc[c_read])
-    ndiag = torch.where(is_bs, -c_diag, -(1 << 30))
-    best_nd = _seg_max(ndiag, c_read, B)
-    is_bd = is_bs & (-c_diag == best_nd[c_read])
+    # the leftmost diagonal: the largest negation (over uint32 for a big
+    # index, the bitwise complement)
+    if cfg.big:
+        neg, neg_fill = M32 - c_diag, 0
+    else:
+        neg, neg_fill = -c_diag, -(1 << 30)
+    best_nd = _seg_max(torch.where(is_bs, neg, neg_fill), c_read, B)
+    is_bd = is_bs & (neg == best_nd[c_read])
     fwi = torch.where(is_bd, c_fw.to(i32), -1)
     best_fwi = _seg_max(fwi, c_read, B)
     is_bf = is_bd & (c_fw.to(i32) == best_fwi[c_read])
@@ -759,19 +804,19 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
         # r3: best_pack : B;  r4: [sec16<<16 | mult16 : B | counters : 9]
         Wp = Cx + 128
         i64 = torch.int64
-        r0 = _wrap32(c_valid.to(i64) | (interior.to(i64) << 1)
+        r0 = dfm.narrow(c_valid.to(i64) | (interior.to(i64) << 1)
                      | (c_fw.to(i64) << 2) | (c_read.to(i64) << 4)
                      | (nm_c.clamp_max(511).to(i64) << 22)
                      | (ungapped_c.to(i64) << 31))
         sc16 = c_score.clamp(-30000, 30000).to(i64) + 32768
         bibk = (bi.clamp(0, 255).to(i64) << 8) | bk.clamp(0, 255).to(i64)
-        r2 = _wrap32(sc16 | (bibk << 16))
+        r2 = dfm.narrow(sc16 | (bibk << 16))
         sec16 = sec_sc.clamp(-30000, 30000).to(i64) + 32768
-        secmult = _wrap32((sec16 << 16)
+        secmult = dfm.narrow((sec16 << 16)
                           | exact_mult.to(i64).clamp_max(65535))
         out = torch.zeros((5, Wp), dtype=i32, device=dev)
         out[0, :Cx] = r0
-        out[1, :Cx] = c_diag
+        out[1, :Cx] = dfm.narrow(c_diag)
         out[2, :Cx] = r2
         out[3, :B] = best_pack
         out[4, :B] = secmult
@@ -780,7 +825,7 @@ def fused_pipeline(didx: DeviceIndex, dkm, cfg: CandGenCfg, packed2, meta,
     out = torch.zeros((7, Cx), dtype=i32, device=dev)
     out[0] = ((c_read << 4) | (c_fw.to(i32) << 2) | (interior.to(i32) << 1)
               | c_valid.to(i32))
-    out[1] = c_diag
+    out[1] = dfm.narrow(c_diag)
     out[2] = c_score
     out[3] = (bi << 8) | bk.clamp(0, 255)
     out[4, :B] = best_pack
@@ -826,7 +871,7 @@ class BatchResult:
             self.c_interior = ((r0 >> 1) & 1).astype(bool)[keep]
             self.c_nm = ((r0 >> 22) & 0x1FF).astype(np.int32)[keep]
             self.c_ungapped = (r0 >> 31).astype(bool)[keep]
-            self.c_diag = out[1, :Cl][keep]
+            self.c_diag = self._diag(out[1, :Cl][keep], cfg)
             r2 = out[2, :Cl][keep]
             sc = (r2 & 0xFFFF) - 32768
             self.c_score = np.where(sc <= -30000, NEG_INF, sc)
@@ -848,7 +893,7 @@ class BatchResult:
             self.c_read = reads[keep]
             self.c_fw = ((row0 >> 2) & 1).astype(bool)[keep]
             self.c_interior = ((row0 >> 1) & 1).astype(bool)[keep]
-            self.c_diag = out[1][keep]
+            self.c_diag = self._diag(out[1][keep], cfg)
             self.c_score = out[2][keep]
             self.c_bi = (out[3] >> 8)[keep]
             self.c_bk = (out[3] & 255)[keep]
@@ -882,6 +927,14 @@ class BatchResult:
             self.best_ci = np.full(B0, -1, np.int32)
             self.best_sc = np.full(B0, NEG_INF, np.int64)
 
+    @staticmethod
+    def _diag(row1, cfg):
+        """The packed diagonals: a big index's are biased uint32 bit
+        patterns."""
+        if cfg.big:
+            return row1.view(np.uint32).astype(np.int64) - (cfg.L + cfg.K)
+        return row1
+
 
 class CandGen:
     """Host side of the fused device pipeline: padding/bucketing, packed
@@ -890,9 +943,10 @@ class CandGen:
     def __init__(self, dev_fw, dev_mirror, idx, pol, sw_cfg, K: int, device,
                  mesh=None):
         """dev_fw/dev_mirror: the index's DeviceFm directions on `device`
-        (ops/fm.py; big indexes are refused there)."""
+        (ops/fm.py), both small or both big."""
         self.device = torch.device(device)
         self.mesh = mesh
+        self.big = dev_fw.big
         self._sticky = 1   # sticky size_mult after an overflow escalation
         self.didx = make_device_index(idx, self.device, dev_fw, dev_mirror)
         self._joined_host = idx.joined
@@ -975,6 +1029,10 @@ class CandGen:
             has_short = True
         if pol.n_seed_mms > 0:
             # -N 1 needs per-seed FM patterns for the substitution branches
+            has_short = True
+        if self.big:
+            # a big index runs the general shape: no k-mer table fits on
+            # the device beside it (docs/BIGINDEX.md)
             has_short = True
         # the seed table serves the fast shape only
         dkm, ktab = (None, None) if has_short else self._kmer(pol.seed_len)
@@ -1075,6 +1133,7 @@ class CandGen:
             mmtab_t=tuple(int(x) for x in np.asarray(mmtab[:64])),
             sched=sched, static_len=static_len, raw_len=raw_len,
             seed_mms=min(pol.n_seed_mms, 1),
+            big=self.big,
             boost_thresh=getattr(pol, "boost_thresh", 300),
             no_exact_up=getattr(pol, "no_exact_upfront", False),
             no_1mm_up=getattr(pol, "no_1mm_upfront", False))

@@ -4,8 +4,8 @@ bt2_search.cpp paired driver paths). Port of
 bowtie2_server_tpu/align/paired.py: both mates run through the port's
 UnpairedAligner on the device given at construction, and mate rescue runs
 the rectangle DP there (the CUDA kernel of ops/csrc/sw.cu on the card).
-Not ported yet: the --met counters, --log-dp-opp (ROADMAP Queue A item
-14) and the big-index batch splitting (item 12).
+Not ported yet: the --met counters and --log-dp-opp (ROADMAP Queue A item
+14).
 
 Strategy: run the full unpaired candidate machinery on both mates, then
  1. enumerate concordant combos from the two candidate sets (classification
@@ -29,8 +29,8 @@ from ..io.fastq import ReadBatch
 from ..ops.sw import NEG_INF, sw_align_batch
 from ..utils.rng import RandomSource, select_by_score_order
 from .mapq import mapq_batch, mapq_fn
-from .pipeline import (MAPQ_V, AlnRec, LazyRecs, SearchPolicy,
-                       UnpairedAligner, revcomp_batch)
+from .pipeline import (MAPQ_V, AlnRec, BigCapacityError, ConcatRecs,
+                       LazyRecs, SearchPolicy, UnpairedAligner, revcomp_batch)
 
 CONCORDANT, DISCORDANT = 1, 0
 
@@ -172,12 +172,13 @@ class PairedAligner:
     def __init__(self, index, scoring=None, policy: SearchPolicy | None = None,
                  pe: PairedPolicy | None = None, *, device,
                  no_mixed: bool = False, no_discordant: bool = False,
-                 sc_unmapped_tlen: bool = False):
+                 sc_unmapped_tlen: bool = False,
+                 force_big: bool | None = None):
         """device: where both mates' pipelines and mate rescue run ('cpu'
         runs the plain torch versions of the kernels, 'cuda' the CUDA
-        kernels)."""
+        kernels); force_big: as UnpairedAligner's."""
         self.up = UnpairedAligner(index, scoring=scoring, policy=policy,
-                                  device=device)
+                                  device=device, force_big=force_big)
         self.pe = pe or PairedPolicy()
         self.no_mixed = no_mixed        # ref: --no-mixed (gMixedMode off)
         self.no_discordant = no_discordant  # ref: --no-discordant
@@ -455,6 +456,20 @@ class PairedAligner:
         # mate 2's seed stage for the round (which, with halved rounds, is
         # the whole seed stage).
         b1, b2, both_ok, h1, h2 = handle
+        try:
+            return self._align_wait_inner(b1, b2, both_ok, h1, h2)
+        except BigCapacityError:
+            # big-index degradation: halve the pair batch and retry (see
+            # UnpairedAligner.align_wait)
+            B = len(b1)
+            if B < 2:
+                raise
+            mid = B // 2
+            return ConcatRecs([
+                self.align_batch(b1.slice(0, mid), b2.slice(0, mid)),
+                self.align_batch(b1.slice(mid, B), b2.slice(mid, B))])
+
+    def _align_wait_inner(self, b1, b2, both_ok, h1, h2):
         st1 = self.up.collect_wait(h1)
         skip2 = both_ok & st1.seeds_failed_r0
         if h2[0] == "host":

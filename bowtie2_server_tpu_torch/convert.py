@@ -32,19 +32,27 @@ def _put(a, dtype, device):
     return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(device)
 
 
+def _put_u32(a, device):
+    """uint32 values as the int32 tensor of their bit patterns."""
+    return torch.from_numpy(np.array(a, np.uint32).view(np.int32)).to(device)
+
+
 def fm_from_numpy(fm: Mapping[str, np.ndarray], device) -> DeviceFm:
     """The port's DeviceFm on `device` from numpy copies of the fields of
-    the JAX package's small-index DeviceFm (side, cnt, sa, ftab_top,
-    ftab_bot, n, primary)."""
-    side = np.ascontiguousarray(fm["side"], np.uint32).view(np.int32)
+    the JAX package's DeviceFm (side, cnt, sa, ftab_top, ftab_bot, n,
+    primary; and mark, sa_samp and off_rate, which a big index uses)."""
     cnt = tuple(int(x) for x in np.asarray(fm["cnt"])[:4])
-    return DeviceFm(side=_put(side, np.int32, device),
+    off_rate = int(fm.get("off_rate", 0))
+    big = dict(mark=_put_u32(fm["mark"], device),
+               sa_samp=_put_u32(fm["sa_samp"], device),
+               off_rate=off_rate) if off_rate else {}
+    return DeviceFm(side=_put_u32(fm["side"], device),
                     cnt=_put(np.asarray(cnt), np.int64, device),
-                    sa=_put(fm["sa"], np.int32, device),
-                    ftab_top=_put(fm["ftab_top"], np.int32, device),
-                    ftab_bot=_put(fm["ftab_bot"], np.int32, device),
+                    sa=_put_u32(fm["sa"], device),
+                    ftab_top=_put_u32(fm["ftab_top"], device),
+                    ftab_bot=_put_u32(fm["ftab_bot"], device),
                     n=int(fm["n"]), primary=int(fm["primary"]),
-                    cnt_host=cnt)
+                    cnt_host=cnt, **big)
 
 
 def state_from_numpy(index: Mapping[str, np.ndarray],
@@ -59,8 +67,8 @@ def state_from_numpy(index: Mapping[str, np.ndarray],
     put = lambda a, dtype: _put(a, dtype, device)
     didx = DeviceIndex(joined=put(index["joined"], np.uint8),
                        joined_words=put(index["joined_words"], np.int64),
-                       run_starts=put(index["run_starts"], np.int32),
-                       run_ends=put(index["run_ends"], np.int32),
+                       run_starts=put(index["run_starts"], np.int64),
+                       run_ends=put(index["run_ends"], np.int64),
                        fw=fm_from_numpy(fw, device) if fw else None,
                        mirror=(fm_from_numpy(mirror, device) if mirror
                                else None))
@@ -77,10 +85,7 @@ def state_from_numpy(index: Mapping[str, np.ndarray],
 def cfg_from_fields(fields: Mapping) -> CandGenCfg:
     """The port's CandGenCfg from a CandGenCfg's `_asdict()`; its `sw`
     may be any dataclass with SwConfig's fields (or a mapping). Fields the
-    port does not read are dropped; a big-index config is refused."""
-    if fields.get("big"):
-        raise NotImplementedError(
-            "big: not ported yet (ROADMAP Queue A item 12)")
+    port does not read are dropped."""
     sw = fields["sw"]
     if not isinstance(sw, Mapping):
         sw = dataclasses.asdict(sw)

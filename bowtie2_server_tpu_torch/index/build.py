@@ -122,18 +122,18 @@ def _build_direction(text: np.ndarray, sa: np.ndarray) -> FmDirection:
     sa_std[1:] = sa.astype(dtype)
 
     # Occ checkpoints: occ[k, c] = count of c in bwt[0 : k*OCC_BLOCK],
-    # chunked per-block bincount (CH divisible by OCC_BLOCK).
+    # per-block counts over chunks of whole blocks (CH divisible by
+    # OCC_BLOCK; the hole and the padding, code 4, count as nothing).
     n_blocks = (n_rows + OCC_BLOCK - 1) // OCC_BLOCK
     per_block = np.zeros((n_blocks, 4), np.int64)
     for lo in range(0, n_rows, CH):
         hi = min(lo + CH, n_rows)
-        seg = bwt[lo:hi]
-        ok = seg < 4
-        blk_local = np.arange(lo, hi) // OCC_BLOCK - lo // OCC_BLOCK
-        key = blk_local * 4 + np.minimum(seg, 3)
-        cnts = np.bincount(
-            key[ok], minlength=(blk_local[-1] + 1) * 4).reshape(-1, 4)
-        per_block[lo // OCC_BLOCK : lo // OCC_BLOCK + len(cnts)] += cnts
+        seg = np.full(-(-(hi - lo) // OCC_BLOCK) * OCC_BLOCK, 4, np.uint8)
+        seg[: hi - lo] = bwt[lo:hi]
+        blocks = seg.reshape(-1, OCC_BLOCK)
+        b0 = lo // OCC_BLOCK
+        for c in range(4):
+            per_block[b0 : b0 + len(blocks), c] = (blocks == c).sum(1)
     occ = np.zeros((n_blocks + 1, 4), dtype=np.uint32)
     occ[1:] = np.cumsum(per_block, axis=0).astype(np.uint32)
 
@@ -145,26 +145,29 @@ def _build_direction(text: np.ndarray, sa: np.ndarray) -> FmDirection:
 
     # ftab: row ranges per FTAB_CHARS-mer. The SA orders k-mer keys, so
     # searchsorted boundaries equal prefix sums of per-key counts — a
-    # chunked histogram instead of an O(8n) key array. A-padded short
-    # suffixes sort first among equal keys, so `top` bumps past them (a
-    # k-char pattern cannot match a <k-char suffix). Row indices are in
+    # histogram of the keys of all suffixes, which it takes in text order
+    # (sequential reads, no gathers through the SA) in chunks. A-padded
+    # short suffixes sort first among equal keys, so `top` bumps past them
+    # (a k-char pattern cannot match a <k-char suffix). Row indices are in
     # standard space (+1 for the $ row, which sorts before everything).
     k = FTAB_CHARS
-    pows = (4 ** np.arange(k - 1, -1, -1)).astype(np.int64)
     key_counts = np.zeros(4 ** k, np.int64)
-    bump = np.zeros(4 ** k, np.int64)
     for lo in range(0, n, CH):
-        starts = sa[lo : lo + CH].astype(np.int64)
-        keys = np.zeros(len(starts), np.int64)
+        hi = min(lo + CH, n)
+        win = np.zeros(hi - lo + k - 1, np.uint8)   # A-padded past the end
+        tail = text[lo : hi + k - 1]
+        win[: len(tail)] = tail
+        keys = np.zeros(hi - lo, np.int32)
         for i in range(k):
-            pos = starts + i
-            keys += np.where(pos < n,
-                             text[np.minimum(pos, n - 1)].astype(np.int64),
-                             0) * pows[i]
+            keys = (keys << 2) | win[i : i + hi - lo]
         key_counts += np.bincount(keys, minlength=4 ** k)
-        short = starts > n - k
-        if short.any():
-            bump += np.bincount(keys[short], minlength=4 ** k)
+    short = np.arange(max(n - k + 1, 0), n)     # suffixes under k chars
+    pad = np.zeros(len(short) + k - 1, np.uint8)
+    pad[: len(short)] = text[len(text) - len(short):]
+    skeys = np.zeros(len(short), np.int64)
+    for i in range(k):
+        skeys = (skeys << 2) | pad[i : i + len(short)]
+    bump = np.bincount(skeys, minlength=4 ** k)
     csum = np.zeros(4 ** k + 1, np.int64)
     np.cumsum(key_counts, out=csum[1:])
     top = csum[:-1] + 1 + bump

@@ -202,19 +202,20 @@ def sais(text: np.ndarray, force64: bool = False) -> np.ndarray | None:
     if lib is None:
         return None
     text = np.ascontiguousarray(text, dtype=np.uint8)
+    # the library sorts into n + 1 slots, the sentinel suffix first
     if n >= (1 << 31) or force64:
-        sa = np.empty(n, dtype=np.int64)
+        sa = np.empty(n + 1, dtype=np.int64)
         rc = lib.bt2tpu_sais64(
             text.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             np.int64(n), sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
-        return sa if rc == 0 else None
-    sa = np.empty(n, dtype=np.int32)
+        return sa[1:] if rc == 0 else None
+    sa = np.empty(n + 1, dtype=np.int32)
     rc = lib.bt2tpu_sais(
         text.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         np.int32(n), sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
     if rc != 0:
         return None
-    return sa.astype(np.int64)
+    return sa[1:].astype(np.int64)
 
 
 def sa_from_bwt(bwt: np.ndarray, primary: int,

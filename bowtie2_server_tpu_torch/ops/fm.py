@@ -1,6 +1,7 @@
 """Batched FM-index ops on the device (ref: aligner_seed.cpp:668
 searchSeedBi, :854 exactSweep; bt2_idx.h:1758 countBt2Side, :2087
-mapLFEx). Port of bowtie2_server_tpu/ops/fm.py, small (full-SA) indexes.
+mapLFEx). Port of bowtie2_server_tpu/ops/fm.py, small (full-SA) and big
+(sampled-SA) indexes.
 
     occ(c, row) = ckpt[row // 64, c] + count(bwt[row//64*64 : row] == c)
     LF: top' = cnt[c] + occ(c, top);  bot' = cnt[c] + occ(c, bot)
@@ -9,8 +10,18 @@ applied to [lanes]-shaped row vectors, one step per pattern character,
 right to left. Sides are 32 bytes per 64-row block: [cntA, cntC, cntG,
 cntT, w0..w3] as 8 uint32 words (the counts at the block start, then the
 block's BWT 2-bit packed, 16 bases a word, little-endian; the $ hole packs
-as 0 and is subtracted from c == 0 counts). They are held as int32 bit
-patterns.
+as 0 and is subtracted from c == 0 counts).
+
+Row convention. A row (and an SA offset) is a uint32 value. Every tensor
+holding rows, and the sides, marks, samples and ftab, is int32 holding the
+uint32 bit pattern (the same bytes as the JAX package's arrays). The plain
+torch code widens such a tensor with `widen` (int64, `& 0xFFFFFFFF`)
+before any arithmetic or comparison and narrows a result with `narrow`
+(mod 2^32, then the int32 with those bits), never with a plain
+`.to(torch.int32)`. Small indexes (joined text under BIG_THRESHOLD) only
+hold rows below 2^31, where the pattern is the value; big indexes
+(GRCh38-scale, docs/BIGINDEX.md) reach 2^32 - 1, and the CUDA kernels
+then run their uint32 instantiation (`DeviceFm.big`).
 
 Two implementations of the LF walk:
   - the plain PyTorch version: `lf_step_torch` (occ by a SWAR popcount in
@@ -20,17 +31,24 @@ Two implementations of the LF walk:
     ftab jump, the recorded pass, the 1-mismatch continuation) and
     `fm_lf_step` (one step on explicit characters).
 The wrappers (`lf_step`, `backward_search_body`,
-`backward_search_record_body`, `one_mm_phase1_body`) take the plain
-version only for tensors on the CPU; on CUDA tensors they launch the
-kernel or raise. `occ_batch`, `occ_all4` and `lf_all4` are the plain
-building blocks (no path calls them on the card).
+`backward_search_record_body`, `one_mm_phase1_body`,
+`resolve_rows_body`) take the plain version only for tensors on the CPU;
+on CUDA tensors they launch the kernel or raise. `occ_batch`, `occ_all4`
+and `lf_all4` are the plain building blocks (no path calls them on the
+card).
 
 A recorded pass is laid out [L+1, lanes] (entry s holds the range after
 matching the length-s suffix), so that the kernel's writes are coalesced;
 every consumer here indexes it that way.
 
-SA resolution is one gather into the full suffix array (ref: group_walk.h,
-redesigned away). Big (sampled-SA) indexes are ROADMAP Queue A item 12.
+SA resolution: a small index keeps the full suffix array on the device
+and resolves a row by one gather (ref: group_walk.h, redesigned away); a
+big index keeps only the SA values that are multiples of 2^off_rate, with
+a mark bitmap, and resolves a row by walking left to a marked row
+(`resolve_rows_body`, the `fm_resolve` kernel; ref: bt2_idx.h:1607
+walkLeft, :1612 getOffset). The host-array helpers (`backward_search`,
+`sa_resolve`, `lf_step_padded`, `one_mm_branch_hits`) serve the host path,
+which big indexes do not take (as in the JAX package).
 """
 from __future__ import annotations
 
@@ -45,73 +63,144 @@ from . import kernels
 DEV_OCC_BLOCK = 64
 _SIDE_W = 8
 _PAIR_MASK = 0x55555555
-_M32 = 0xFFFFFFFF
-# joined texts this long take the big-index layout (uint32 rows, sampled
-# SA) in the reference package
-BIG_THRESHOLD = (1 << 31) - (1 << 23)
+M32 = 0xFFFFFFFF          # a uint32 row's bits in int64
+# joined texts this long take the big-index layout: uint32 rows and an SA
+# sampled every 2^OFF_RATE_BIG values (the reference's offRate,
+# bt2_idx.h:133, defaults to 5; 4 halves the walk-left trips)
+BIG_THRESHOLD = (1 << 31) - (1 << 23)   # headroom for the diagonal bias
+OFF_RATE_BIG = 4
 
 # fm_walk modes (ops/csrc/fm.cu)
 WALK_SEARCH, WALK_RECORD, WALK_CONT = 0, 1, 2
 
 
 class DeviceFm(NamedTuple):
-    """Device tensors of one FM direction, plus its scalars on the host."""
-    side: torch.Tensor      # [n_blocks+1, 8] int32 (uint32 bit patterns)
+    """Device tensors of one FM direction, plus its scalars on the host
+    (int32 tensors hold uint32 bit patterns: the module doc's row
+    convention)."""
+    side: torch.Tensor      # [n_blocks+1, 8] int32
     cnt: torch.Tensor       # [4] int64 C-array
-    sa: torch.Tensor        # [n] int32 full SA
+    sa: torch.Tensor        # [n] int32 full SA ([1] dummy when big)
     ftab_top: torch.Tensor  # [4^FTAB_CHARS] int32
     ftab_bot: torch.Tensor  # [4^FTAB_CHARS] int32
     n: int                  # rows (text length + 1)
     primary: int            # row of the BWT hole ($, packed 0)
     cnt_host: tuple         # the C-array as 4 ints
+    # big indexes only (None otherwise):
+    mark: torch.Tensor | None = None     # [n_blocks+1, 4] int32: [bits_lo,
+                            # bits_hi, rank, 0] a 64-row block; bit b set
+                            # iff SA[blk*64+b] % 2^off_rate == 0, rank =
+                            # marked rows before the block
+    sa_samp: torch.Tensor | None = None  # [n_marked] int32: the SA values
+                            # of the marked rows, in row order
+    off_rate: int = 0       # 0: full SA, else the sampling exponent
 
     @property
     def device(self) -> torch.device:
         return self.side.device
 
+    @property
+    def big(self) -> bool:
+        return self.off_rate > 0
+
+
+def widen(t):
+    """int32 tensor of uint32 bit patterns -> int64 values."""
+    return t.to(torch.int64) & M32
+
+
+def narrow(x):
+    """int64 tensor -> int32 tensor holding the bits of x mod 2^32."""
+    x = x & M32
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+def as_i32(v: int) -> int:
+    """A uint32 Python int as the int32 with the same bits."""
+    v &= M32
+    return v - (1 << 32) if v >= (1 << 31) else v
+
+
+_CH_BLOCKS = 1 << 20       # host build chunk: 64 Mi rows
+
 
 def build_sides(d: FmDirection) -> np.ndarray:
     """[n_blocks+1, 8] uint32 fused sides of one direction (see module
-    doc)."""
+    doc), built in chunks of blocks (host memory O(chunk) beyond the
+    result)."""
     n = d.n
     n_blocks = (n + DEV_OCC_BLOCK - 1) // DEV_OCC_BLOCK
-    n_pad = (n_blocks + 1) * DEV_OCC_BLOCK
-    codes = np.zeros(n_pad, np.uint8)
-    codes[:n] = d.bwt
-    codes[codes > 3] = 0          # the $ hole (and padding) packs as 0
-    words = (codes.reshape(-1, 16).astype(np.uint32)
-             << (2 * np.arange(16, dtype=np.uint32))
-             ).sum(axis=1, dtype=np.uint64).astype(np.uint32)
-    # checkpoint counts at block starts, from the byte BWT (hole uncounted)
-    valid = np.zeros(n_pad, bool)
-    valid[:n] = d.bwt < 4
-    cb = codes.reshape(-1, DEV_OCC_BLOCK)
-    vb = valid.reshape(-1, DEV_OCC_BLOCK)
-    per_block = np.stack([((cb == c) & vb).sum(1, dtype=np.uint64)
-                          for c in range(4)], 1)
     side = np.zeros((n_blocks + 1, _SIDE_W), np.uint32)
+    per_block = np.zeros((n_blocks + 1, 4), np.uint64)
+    shifts = 2 * np.arange(16, dtype=np.uint32)
+    for b0 in range(0, n_blocks + 1, _CH_BLOCKS):
+        b1 = min(b0 + _CH_BLOCKS, n_blocks + 1)
+        lo, hi = b0 * DEV_OCC_BLOCK, b1 * DEV_OCC_BLOCK
+        codes = np.zeros(hi - lo, np.uint8)
+        seg = d.bwt[lo : min(hi, n)]
+        codes[: len(seg)] = seg
+        valid = codes < 4
+        valid[len(seg):] = False
+        codes[~valid] = 0         # the $ hole (and padding) packs as 0
+        side[b0:b1, 4:] = (codes.reshape(-1, 16).astype(np.uint32)
+                           << shifts).sum(axis=1, dtype=np.uint64).astype(
+            np.uint32).reshape(-1, 4)
+        cb = codes.reshape(-1, DEV_OCC_BLOCK)
+        vb = valid.reshape(-1, DEV_OCC_BLOCK)
+        per_block[b0:b1] = np.stack(
+            [((cb == c) & vb).sum(1, dtype=np.uint64) for c in range(4)], 1)
+    # checkpoint counts at block starts (hole uncounted)
     side[1:, :4] = np.cumsum(per_block[:-1], axis=0).astype(np.uint32)
-    side[:, 4:] = words.reshape(n_blocks + 1, 4)
     return side
 
 
-def to_device(d: FmDirection, device, big: bool | None = None) -> DeviceFm:
-    """The device layout of one direction on `device`."""
+def build_marks(sa: np.ndarray, off_rate: int):
+    """The sampled SA of a big index from its full SA [n] (row order):
+    (mark [n_blocks+1, 4] uint32, sa_samp [n_marked] uint32), laid out as
+    DeviceFm's fields; built in chunks of blocks."""
+    n = len(sa)
+    n_blocks = (n + DEV_OCC_BLOCK - 1) // DEV_OCC_BLOCK
+    mask = (1 << off_rate) - 1
+    mark = np.zeros((n_blocks + 1, 4), np.uint32)
+    samp = []
+    for b0 in range(0, n_blocks + 1, _CH_BLOCKS):
+        b1 = min(b0 + _CH_BLOCKS, n_blocks + 1)
+        lo, hi = b0 * DEV_OCC_BLOCK, b1 * DEV_OCC_BLOCK
+        seg = np.asarray(sa[lo : min(hi, n)])
+        marked = np.zeros(hi - lo, bool)
+        marked[: len(seg)] = (seg & mask) == 0
+        # bit b of word w is row 32w + b: the lo and hi words of a block
+        mark[b0:b1, :2] = np.packbits(marked, bitorder="little").view(
+            "<u4").reshape(-1, 2)
+        mark[b0:b1, 2] = marked.reshape(-1, DEV_OCC_BLOCK).sum(
+            1, dtype=np.uint64).astype(np.uint32)
+        samp.append(seg[marked[: len(seg)]].astype(np.uint32))
+    # rank = marked rows before the block
+    counts = mark[:, 2].astype(np.uint64)
+    mark[:, 2] = 0
+    mark[1:, 2] = np.cumsum(counts[:-1]).astype(np.uint32)
+    return mark, np.concatenate(samp)
+
+
+def to_device(d: FmDirection, device, big: bool | None = None,
+              off_rate: int = OFF_RATE_BIG) -> DeviceFm:
+    """The device layout of one direction on `device`: small (full SA) or,
+    with `big` (default: the direction's rows reach BIG_THRESHOLD), the
+    big layout, whose SA is sampled every 2^off_rate values."""
     if big is None:
         big = d.n >= BIG_THRESHOLD
-    if big:
-        raise NotImplementedError(
-            "big indexes (sampled SA, uint32 rows) are not ported yet "
-            "(ROADMAP Queue A item 12)")
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    i32 = lambda a: put(np.ascontiguousarray(a, np.uint32).view(np.int32))
     cnt = tuple(int(x) for x in d.cnt[:4])
-    return DeviceFm(
-        side=put(build_sides(d).view(np.int32)),
-        cnt=put(np.asarray(cnt, np.int64)),
-        sa=put(d.sa.astype(np.int32)),
-        ftab_top=put(d.ftab_top.astype(np.int32)),
-        ftab_bot=put(d.ftab_bot.astype(np.int32)),
-        n=int(d.n), primary=int(d.primary), cnt_host=cnt)
+    fields = dict(side=i32(build_sides(d)),
+                  cnt=put(np.asarray(cnt, np.int64)),
+                  ftab_top=i32(d.ftab_top), ftab_bot=i32(d.ftab_bot),
+                  n=int(d.n), primary=int(d.primary), cnt_host=cnt)
+    if not big:
+        return DeviceFm(sa=i32(d.sa), **fields)
+    mark, samp = build_marks(d.sa, off_rate)
+    return DeviceFm(sa=put(np.zeros(1, np.int32)), mark=i32(mark),
+                    sa_samp=i32(samp), off_rate=off_rate, **fields)
 
 
 def _pow2_pad(n: int, lo: int = 256) -> int:
@@ -157,15 +246,16 @@ def _popc_pairs(x):
 
 
 def _side(fm: DeviceFm, rows):
+    """(block, widened side [B, 8]) of int64 rows."""
     blk = rows >> 6
-    return blk, (fm.side[blk].to(torch.int64) & _M32)      # [B, 8]
+    return blk, widen(fm.side[blk])
 
 
 def occ_batch(fm: DeviceFm, c, rows):
     """occ(c, row): occurrences of c in bwt[0:row]. c: [B] in 0..3, rows:
-    [B] -> [B] int32 (plain torch, one side gather)."""
+    [B] int32 -> [B] int32 (plain torch, one side gather)."""
     c = c.to(torch.int64)
-    rows = rows.to(torch.int64)
+    rows = widen(rows)
     blk, side = _side(fm, rows)
     rem = rows & 63
     base = side[:, :4].gather(1, c[:, None])[:, 0]
@@ -174,13 +264,13 @@ def occ_batch(fm: DeviceFm, c, rows):
     in_block = rem - _popc_pairs(nonmatch)
     corr = ((c == 0) & (fm.primary >= blk * DEV_OCC_BLOCK)
             & (fm.primary < rows))
-    return (base + in_block - corr.to(torch.int64)).to(torch.int32)
+    return narrow(base + in_block - corr.to(torch.int64))
 
 
 def occ_all4(fm: DeviceFm, rows):
     """occ(c, row) for all four characters from one side gather a row.
-    rows: [B] -> [B, 4] int32 (plain torch)."""
-    rows = rows.to(torch.int64)
+    rows: [B] int32 -> [B, 4] int32 (plain torch)."""
+    rows = widen(rows)
     blk, side = _side(fm, rows)
     rem = rows & 63
     mask = _row_mask(rem)
@@ -192,16 +282,16 @@ def occ_all4(fm: DeviceFm, rows):
     in_block = torch.stack(outs, 1)
     corr = (fm.primary >= blk * DEV_OCC_BLOCK) & (fm.primary < rows)
     in_block[:, 0] -= corr.to(torch.int64)   # the $ hole counted as 0
-    return (side[:, :4] + in_block).to(torch.int32)
+    return narrow(side[:, :4] + in_block)
 
 
 def lf_all4(fm: DeviceFm, top, bot):
     """All-four-character LF step: (new_top, new_bot) each [B, 4] int32.
     Empty/invalid input ranges must be masked by the caller."""
     B = top.shape[0]
-    both = occ_all4(fm, torch.cat([top, bot]))
-    cnt = fm.cnt[None, :].to(torch.int32)
-    return cnt + both[:B], cnt + both[B:]
+    both = widen(occ_all4(fm, torch.cat([top, bot])))
+    cnt = fm.cnt[None, :]
+    return narrow(cnt + both[:B]), narrow(cnt + both[B:])
 
 
 def lf_step_torch(fm: DeviceFm, c, top, bot):
@@ -213,15 +303,15 @@ def lf_step_torch(fm: DeviceFm, c, top, bot):
     new_bot = torch.zeros_like(new_top)
     # only the lanes that step (most of a branch grid or of a finished
     # walk do not) are counted
-    go = torch.nonzero((c <= 3) & (top < bot)).squeeze(1)
+    go = torch.nonzero((c <= 3) & (widen(top) < widen(bot))).squeeze(1)
     if go.numel():
         cc = c[go]
         k = go.shape[0]
-        both = occ_batch(fm, torch.cat([cc, cc]),
-                         torch.cat([top[go], bot[go]])).to(torch.int64)
+        both = widen(occ_batch(fm, torch.cat([cc, cc]),
+                               torch.cat([top[go], bot[go]])))
         base = fm.cnt[cc]
-        new_top[go] = (base + both[:k]).to(torch.int32)
-        new_bot[go] = (base + both[k:]).to(torch.int32)
+        new_top[go] = narrow(base + both[:k])
+        new_bot[go] = narrow(base + both[k:])
     return new_top, new_bot
 
 
@@ -241,7 +331,10 @@ def _i32(t):
 
 
 def _fm_args(fm: DeviceFm):
-    return [*fm.cnt_host, fm.n, fm.primary]
+    """The index's scalars as the C entry points take them (int32 bit
+    patterns), then whether rows are uint32."""
+    return [*(as_i32(v) for v in (*fm.cnt_host, fm.n, fm.primary)),
+            int(fm.big)]
 
 
 def lf_step(fm: DeviceFm, c, top, bot):
@@ -330,13 +423,14 @@ def backward_search_body_torch(fm: DeviceFm, patterns, lengths,
             valid &= (c >= 0) & (c <= 3)
         key = key.clamp(0, 4 ** k - 1)
         top = torch.where(valid, fm.ftab_top[key], 0).to(torch.int32)
-        bot = torch.where(valid, fm.ftab_bot[key], fm.n).to(torch.int32)
+        bot = torch.where(valid, fm.ftab_bot[key],
+                          as_i32(fm.n)).to(torch.int32)
         # lanes that cannot use the ftab (short, or an N in the last k
         # characters) start from the whole range and LF through every char
         start_step = torch.where(valid, k, 0)
     else:
         top = torch.zeros(B, dtype=torch.int32, device=dev)
-        bot = torch.full((B,), fm.n, dtype=torch.int32, device=dev)
+        bot = torch.full((B,), as_i32(fm.n), dtype=torch.int32, device=dev)
         start_step = torch.zeros(B, dtype=torch.int64, device=dev)
     for step in range(L):
         c = gather_char(step)
@@ -344,7 +438,7 @@ def backward_search_body_torch(fm: DeviceFm, patterns, lengths,
         nt, nb = lf_step_torch(fm, torch.where(c < 0, 4, c), top, bot)
         top = torch.where(active, nt, top)
         bot = torch.where(active, nb, bot)
-    empty = top >= bot
+    empty = widen(top) >= widen(bot)
     return torch.where(empty, 0, top), torch.where(empty, 0, bot)
 
 
@@ -397,6 +491,92 @@ def sa_resolve(fm: DeviceFm, top, count, max_elts: int):
     return offs.to(torch.int32).cpu().numpy()
 
 
+# ------------------------------------- walk-left resolution (big index) -
+
+def _popc32(x):
+    """Set bits of int64 values holding 32-bit patterns (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & M32) >> 24
+
+
+def resolve_rows_body_torch(fm: DeviceFm, rows, valid):
+    """Plain PyTorch version of `resolve_rows_body`."""
+    return narrow(walk_left_torch(fm, rows, valid)[0])
+
+
+def walk_left_torch(fm: DeviceFm, rows, valid):
+    """The walk-left of `resolve_rows_body` as the JAX package's fixed
+    2^off_rate-iteration masked loop, every lane in every iteration:
+    (offsets, LF steps taken) as int64 [B]."""
+    row = torch.where(valid, widen(rows), 0)
+    done = ~valid
+    off = torch.zeros_like(row)
+    steps = torch.zeros_like(row)
+    n_samp = fm.sa_samp.shape[0]
+    for _ in range(1 << fm.off_rate):
+        blk, rem = row >> 6, row & 63
+        mk = widen(fm.mark[blk])                                # [B, 4]
+        in_lo = rem < 32
+        sh = rem & 31
+        word = torch.where(in_lo, mk[:, 0], mk[:, 1])
+        marked = ((word >> sh) & 1) == 1
+        below = (torch.ones_like(sh) << sh) - 1
+        rank = mk[:, 2] + _popc32(mk[:, 0] & torch.where(in_lo, below, M32)) \
+            + _popc32(mk[:, 1] & torch.where(in_lo, 0, below))
+        samp = widen(fm.sa_samp[rank.clamp(0, n_samp - 1)])
+        off = torch.where(~done & marked, samp + steps, off)
+        done = done | marked
+        # LF for the unfinished rows: the character and its occ from the
+        # same side
+        side = widen(fm.side[blk])
+        words = side[:, 4:]
+        c = (words.gather(1, (rem >> 4)[:, None])[:, 0]
+             >> (2 * (rem & 15))) & 3
+        x = words ^ (c * _PAIR_MASK)[:, None]
+        occ_c = rem - _popc_pairs((x | (x >> 1)) & _PAIR_MASK
+                                  & _row_mask(rem))
+        base_c = side[:, :4].gather(1, c[:, None])[:, 0]
+        corr = ((c == 0) & (fm.primary >= blk * DEV_OCC_BLOCK)
+                & (fm.primary < row))
+        nrow = fm.cnt[c] + base_c + occ_c - corr.to(torch.int64)
+        row = torch.where(done, row, nrow)
+        steps = steps + (~done).to(torch.int64)
+    return off, steps
+
+
+def resolve_rows_body(fm: DeviceFm, rows, valid):
+    """SA offsets of rows of a big (sampled-SA) index, by walking left
+    (ref: bt2_idx.h:1607 walkLeft, :1612 getOffset): LF-step each row
+    until it reaches a marked row (SA value % 2^off_rate == 0; the primary
+    row, SA 0, is marked, so the BWT hole is never stepped), then offset =
+    sa_samp[rank(row)] + steps, after at most 2^off_rate - 1 steps.
+    rows: [B] int32 (uint32 patterns), valid: [B] bool -> [B] int32
+    offsets (uint32 patterns); 0 where ~valid, which callers mask. On
+    CUDA tensors this launches the `fm_resolve` kernel."""
+    dev = _check_device("resolve_rows", fm, rows, valid)
+    if not fm.big:
+        raise ValueError("resolve_rows_body: the index keeps its full SA")
+    if dev.type == "cpu":
+        return resolve_rows_body_torch(fm, rows, valid)
+    P = rows.shape[0]
+    rows = _i32(rows)
+    valid = valid.to(torch.uint8).contiguous()
+    out = torch.empty(P, dtype=torch.int32, device=dev)
+    if P == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = kernels.lib().bt2_fm_resolve(
+        fm.side.data_ptr(), fm.mark.data_ptr(), fm.sa_samp.data_ptr(),
+        rows.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        fm.sa_samp.shape[0], *(as_i32(v) for v in fm.cnt_host),
+        as_i32(fm.primary), P, 1 << fm.off_rate, stream)
+    kernels.check(rc, "fm_resolve")
+    kernels.LAUNCHES["fm_resolve"] += 1
+    return out
+
+
 # ------------------------------------------------------ recorded pass -
 
 def backward_search_record_body_torch(fm: DeviceFm, patterns, lengths):
@@ -407,7 +587,7 @@ def backward_search_record_body_torch(fm: DeviceFm, patterns, lengths):
     lengths = lengths.to(torch.int64)
     lanes = torch.arange(B, device=dev)
     top = torch.zeros(B, dtype=torch.int32, device=dev)
-    bot = torch.full((B,), fm.n, dtype=torch.int32, device=dev)
+    bot = torch.full((B,), as_i32(fm.n), dtype=torch.int32, device=dev)
     tops, bots = [top], [bot]
     for step in range(L):
         pos = lengths - 1 - step
@@ -476,7 +656,7 @@ def one_mm_phase0_body(fm: DeviceFm, pat, lens, hi, tops, bots,
     s = (lens[:, None] - 1 - p).clamp(0, L)
     t0 = tops[s, b]
     b0 = bots[s, b]
-    valid &= t0 < b0
+    valid &= widen(t0) < widen(b0)
     orig = pat[b, p.clamp(0, L - 1)].to(i64)
     # expand to the 4 substitution characters
     x = torch.arange(4, device=dev)[None, None, :].expand(B, cw, 4)
@@ -487,7 +667,7 @@ def one_mm_phase0_body(fm: DeviceFm, pat, lens, hi, tops, bots,
     t0f = torch.where(ok, t0[:, :, None].expand(B, cw, 4).reshape(-1), 0)
     b0f = torch.where(ok, b0[:, :, None].expand(B, cw, 4).reshape(-1), 0)
     nt, nb = lf_step(fm, xs, t0f, b0f)
-    alive = nt < nb
+    alive = widen(nt) < widen(nb)
     count = alive.sum(dtype=torch.int32)
     n = xs.shape[0]
     idx = nonzero_fixed(alive, k1, n)
@@ -507,7 +687,7 @@ def one_mm_phase1_body_torch(fm: DeviceFm, pat, cb, pos, top, bot,
     rows = cb.to(torch.int64).clamp(0, R - 1)
     pos = pos.to(torch.int32)
     for _ in range(n_steps):
-        act = (pos >= 0) & (top < bot)
+        act = (pos >= 0) & (widen(top) < widen(bot))
         c = pat[rows, pos.to(torch.int64).clamp(0, L - 1)]
         nt, nb = lf_step_torch(fm, c, top, bot)
         top = torch.where(act, nt, top)

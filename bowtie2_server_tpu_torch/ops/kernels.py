@@ -33,7 +33,8 @@ _FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # kernel name -> launches since the last reset_launches(); bt2_sw_banded
 # launches two kernels, counted as sw_banded and sw_banded_general
 LAUNCHES = {"sw_banded": 0, "sw_banded_general": 0, "sw_banded_wide": 0,
-            "sw": 0, "alu_probe": 0, "fm_walk": 0, "fm_lf_step": 0}
+            "sw": 0, "alu_probe": 0, "fm_walk": 0, "fm_lf_step": 0,
+            "fm_resolve": 0}
 
 _LIB = None
 
@@ -111,9 +112,11 @@ def lib():
         lb.bt2_alu_probe.restype = ci
         lb.bt2_alu_probe.argtypes = [vp, vp, ci, ci, vp]
         lb.bt2_fm_walk.restype = ci
-        lb.bt2_fm_walk.argtypes = [vp] * 13 + [ci] * 12 + [vp]
+        lb.bt2_fm_walk.argtypes = [vp] * 13 + [ci] * 13 + [vp]
         lb.bt2_fm_lf_step.restype = ci
-        lb.bt2_fm_lf_step.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+        lb.bt2_fm_lf_step.argtypes = [vp] * 6 + [ci] * 8 + [vp]
+        lb.bt2_fm_resolve.restype = ci
+        lb.bt2_fm_resolve.argtypes = [vp] * 6 + [ci] * 8 + [vp]
         _LIB = lb
     return _LIB
 

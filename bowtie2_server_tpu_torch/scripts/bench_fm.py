@@ -17,6 +17,13 @@ the memory rate would allow.
 
 `step_latency_ms` times one dependent step: a warp of lanes walking 2048
 characters of the text, each step waiting for the last.
+
+The walk-left of a big index (`fm_resolve`) is counted the same way:
+`resolve_steps` gives each lane's LF steps (ops/fm.py `walk_left_torch`),
+and `resolve_bound` charges a trip (a step, or the final test of the
+marked row) its 48 bytes of mark and side (counted once, as the sides
+are) and the recurrence's operations, a lane its sample and its input
+and output.
 """
 from __future__ import annotations
 
@@ -130,3 +137,41 @@ def step_latency_ms(fm: "dfm.DeviceFm", text, n_steps: int = 2048,
         raise RuntimeError("step_latency_ms: a substring of the text has an "
                            "empty range")
     return statistics.median(times) / n_steps
+
+
+# int32 operations of the walk-left (ops/csrc/fm.cu fm_resolve), from the
+# recurrence as OPS_PER_STEP is. A trip's mark test: the block and the
+# remainder (2), the lo/hi word select (1), the bit's shift and test (2):
+# 5. An LF step after it: the character (word index, select, shift
+# amount, shift and mask: 5), then one occ of that character as above
+# (the pattern 1, six ops a word and the prefix mask's two, 32, the sum
+# and rem - it, 5: 38), the count and C-array picks (2), the $ hole (4)
+# and the sum of C, count and occ (2): 51. The marked row's rank and
+# sample: the mask below the row (2), the two masked words (2), two
+# popcounts (2), the two adds (2), the clamp (1), the add of the steps (1):
+# 10.
+OPS_RESOLVE_TEST = 5
+OPS_RESOLVE_STEP = 51
+OPS_RESOLVE_HIT = 10
+RESOLVE_TRIP_BYTES = 16 + 32      # the mark row and the side
+RESOLVE_LANE_BYTES = 4 + 1 + 4    # the row, valid, the offset
+
+
+def resolve_steps(fm: "dfm.DeviceFm", rows, valid):
+    """[P] int64: the LF steps each lane of a resolve_rows_body call
+    takes (0 where ~valid)."""
+    return torch.where(valid, dfm.walk_left_torch(fm, rows, valid)[1], 0)
+
+
+def resolve_bound(steps, valid, ceiling: float, table_bytes: int):
+    """(bound ms, ...) of an fm_resolve launch whose lanes take `steps`
+    LF steps ([P] int64) on an index whose sides and marks take
+    table_bytes: each valid lane makes steps + 1 trips and one sample
+    load."""
+    n_valid = int(valid.sum())
+    trips = int(steps.sum()) + n_valid
+    ops = (trips * OPS_RESOLVE_TEST + int(steps.sum()) * OPS_RESOLVE_STEP
+           + n_valid * OPS_RESOLVE_HIT)
+    nbytes = (min(trips * RESOLVE_TRIP_BYTES, table_bytes) + 4 * n_valid
+              + valid.shape[0] * RESOLVE_LANE_BYTES)
+    return bound(ops, nbytes, ceiling)

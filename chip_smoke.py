@@ -70,6 +70,22 @@ prints no result line:
      dependent-chain floor (steps x the measured time of one dependent
      step), and exact on the FM edge tiles of tests/torch_tiles.py over
      both directions of the genome;
+  BIG. the big-index path (docs/BIGINDEX.md: uint32 rows, the sampled SA
+     resolved by walking left) forced on phase 4's genome
+     (UnpairedAligner(force_big=True, device='cuda'), the layout built
+     from the same index, no new index): 32768 reads of 100 bp, one
+     warm-up batch (the inputs of its first walk-left and recorded pass
+     captured) and 4 measured at depth 4, placement checked, the
+     dispatches a batch (escalations to 2x, 4x, 16x; halvings), two more
+     batches under torch.profiler (device busy share; fm_resolve's,
+     fm_walk's and the banded kernel's device time); fm_resolve, fm_walk
+     and the banded kernel must launch. Then fm_resolve against its plain
+     torch version on the captured inputs and on an edge tile of rows (the
+     first blocks' rows, marked ones among them, the primary row, row 0,
+     the last row) over both directions, timed against its bound and its
+     dependent-chain floor (scripts/bench_fm.py resolve_bound, the longest
+     lane's steps x phase FM's dependent step), and the uint32 fm_walk
+     against its plain version on the captured recorded pass;
   5. CUDA against CPU, each through the port on both devices with identical
      output: one batch of 2048 reads (decoded batch results and SAM
      lines); 2048 reads of 18-60 bp and 2048 under -N 1 (the same); the
@@ -77,7 +93,9 @@ prints no result line:
      100 bp unit planted 300 times, and an index without its mirror
      direction (SAM lines); 512 pairs (SAM lines); one batch of 2048 reads
      at --dpad 32, band K = 256, the path on which the wide-band kernel
-     must launch;
+     must launch; under force_big, 2048 reads (decoded batch results and
+     SAM lines; and the card's SAM equal to the small path's on the card)
+     and 512 pairs (SAM lines);
   6. the entry point: `python -m bowtie2_server_tpu_torch align` on 10k reads
      (-U, and with -N 1 -L 20, and with -k 5) and on 5000 pairs (-1/-2)
      must write well-formed SAM.
@@ -86,8 +104,9 @@ kernel's bound (bench_rect.bound: the larger of its int32 operations over
 the probe's ceiling and its bytes over HBM3's 3.35 TB/s; a cell counts
 bench_banded.banded_ops_per_cell operations in the banded kernels,
 bench_rect.dp_ops_per_cell in the rect kernel; an LF step
-bench_fm.OPS_PER_STEP and each input once) and share of bound; the last
-line is {"ok": true, "device": {...}}.
+bench_fm.OPS_PER_STEP and each input once; a walk-left trip
+bench_fm.resolve_bound's count) and share of bound; the last line is
+{"ok": true, "device": {...}}.
 """
 import argparse
 import contextlib
@@ -148,6 +167,16 @@ N1_LEN = 100        # the -N 1 batch's reads (bench.py's)
 # reference. The limits leave room for sampling.
 ORIGIN_MIN_SR = 0.85
 ORIGIN_MIN_N1 = 0.99
+# the big-index path forced on the main path's genome: 100 bp reads as
+# phase 4's, through the general shape
+BIG_BATCHES = 4     # measured batches, after one warm-up batch
+# Fraction of reads placed at their planted origin and strand. The port's
+# own CPU run of this workload at small size (a 0.4 Mbp chromosome plus 40
+# contigs, 3 x 2048 reads of 100 bp under force_big) placed all of them
+# (1.0000), as the small path does (its SAM is the big path's); the limit
+# leaves room for reads whose substitutions make another placement score
+# as well.
+ORIGIN_MIN_BIG = 0.99
 # the kernels device_shares reports, by a part of their names in the
 # profiler: the register banded kernel, the general kernel launched after
 # it in every call (it returns at once on the paths' scores), and the rect
@@ -156,7 +185,8 @@ ORIGIN_MIN_N1 = 0.99
 SHARE_SYMBOLS = {"banded": "::banded_kernel<",
                  "banded_general": "::banded_general_kernel<",
                  "rect": "::rect_", "fm_walk": "fm_walk_kernel",
-                 "fm_lf_step": "fm_lf_step_kernel"}
+                 "fm_lf_step": "fm_lf_step_kernel",
+                 "fm_resolve": "fm_resolve_kernel"}
 # kernels line: name -> (source in the port, the TPU kernel it replaces)
 KERNEL_SOURCES = {
     "sw_banded": ("sw_banded.cu", "bowtie2_server_tpu/ops/sw_banded.py:240"),
@@ -170,6 +200,9 @@ KERNEL_SOURCES = {
     # (lf_step stepped by lax.fori_loop), given kernels of its own
     "fm_walk": ("fm.cu", "bowtie2_server_tpu/ops/fm.py:240 lf_step"),
     "fm_lf_step": ("fm.cu", "bowtie2_server_tpu/ops/fm.py:240 lf_step"),
+    # the plain-jnp walk-left of a big index (a masked fori_loop)
+    "fm_resolve": ("fm.cu",
+                   "bowtie2_server_tpu/ops/fm.py:260 resolve_rows_body"),
 }
 
 
@@ -1072,6 +1105,168 @@ def phase_fm_kernels(idx, sr_cap, n1_cap, ceiling):
     return out
 
 
+def run_big_path(idx, contigs, device, batch, n_batches, seed=51,
+                 profiled=PROFILED):
+    """The big-index path forced on idx: one warm-up batch of READ_LEN-base
+    reads (the inputs of its first walk-left and recorded pass captured),
+    then n_batches at dispatch depth DEPTH, then `profiled` batches under
+    torch.profiler (card only). Returns (reads/s, aligned fraction, origin
+    fraction, warm-up seconds, the profile or None, the captured calls,
+    the (reads, size multiple) of every dispatch)."""
+    import torch
+    from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.ops import fm as dfm
+    names, seqs, quals, origin = make_reads(
+        seed, contigs, batch * (n_batches + 1 + profiled))
+    batches = [(make_batch(names[i : i + batch], seqs[i : i + batch],
+                           quals[i : i + batch]),)
+               for i in range(0, len(names), batch)]
+    al = UnpairedAligner(idx, device=device, force_big=True)
+    if not (al.big and al.dev.big and al.candgen.big):
+        raise RuntimeError("force_big did not give the big layout")
+    dispatches = []
+    dispatch = al.candgen.dispatch
+
+    def counted(seqs_, *a, size_mult=1, **k):
+        # the size multiple in effect: the sticky escalation's at least
+        dispatches.append((seqs_.shape[0],
+                           max(size_mult, al.candgen._sticky)))
+        return dispatch(seqs_, *a, size_mult=size_mult, **k)
+
+    al.candgen.dispatch = counted
+    sync = torch.cuda.synchronize if device == "cuda" else lambda: None
+    t0 = time.time()
+    with first_calls(dfm, ("resolve_rows_body",
+                           "backward_search_record_body")) as cap:
+        outs = [al.align_batch(*batches[0])]
+    warm = time.time() - t0
+    t0 = time.time()
+    outs += pipelined(al.align_async, al.align_wait,
+                      batches[1 : n_batches + 1], DEPTH)
+    sync()
+    dt = time.time() - t0
+    prof = (profile_device(lambda: pipelined(
+        al.align_async, al.align_wait, batches[n_batches + 1 :], DEPTH))
+        if profiled else None)
+    n = batch * n_batches
+    aligned = sum(r.n_aligned() for r in outs[1:]) / n
+    frac = np.mean([origin_fraction(r, tuple(o[i * batch : (i + 1) * batch]
+                                             for o in origin), False)
+                    for i, r in enumerate(outs)])
+    return n / dt, aligned, float(frac), warm, prof, cap, dispatches
+
+
+def phase_big(idx, contigs):
+    """Phase BIG: the big-index path at full width on the main path's
+    genome."""
+    import torch
+    from bowtie2_server_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    rps, aligned, frac, warm, prof, cap, disp = run_big_path(
+        idx, contigs, "cuda", BATCH, BIG_BATCHES)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    n_all = 1 + BIG_BATCHES + PROFILED
+    mults = {m: sum(1 for _, mm in disp if mm == m)
+             for m in sorted({m for _, m in disp})}
+    halved = sum(1 for b, _ in disp if b < BATCH)
+    log(f"big-index path (forced, {READ_LEN} bp, e2e): {rps:.1f} reads/s "
+        f"over {BIG_BATCHES} batches of {BATCH} at depth {DEPTH} (warm-up "
+        f"batch {warm:.2f} s); aligned {aligned:.4f}; at planted origin and "
+        f"strand {frac:.4f}; {len(disp)} dispatches for {n_all} batches "
+        f"(by size multiple {mults}; {halved} of a halved batch); kernel "
+        f"launches over all {n_all} batches {launches}")
+    shares = device_shares("big-index path", prof, PROFILED)
+    if frac < ORIGIN_MIN_BIG:
+        raise RuntimeError(f"big-index origin fraction {frac:.4f} < "
+                           f"{ORIGIN_MIN_BIG}")
+    for name in ("fm_resolve", "fm_walk", "sw_banded"):
+        if launches[name] == 0:
+            raise RuntimeError(f"the big-index path never launched {name}")
+    return launches, dict(reads_per_s=rps, aligned=aligned, origin=frac,
+                          dispatches=len(disp), batches=n_all,
+                          dispatches_by_size_mult=mults,
+                          halved_dispatches=halved, device=shares), cap
+
+
+def phase_big_kernels(idx, big_cap, ceiling, lat):
+    """fm_resolve against its plain torch version on the inputs the big
+    batch gave it and on an edge tile of rows over both directions, with
+    its bound and dependent-chain floor (lat: phase FM's dependent step,
+    ms); the uint32 fm_walk against its plain version on the big batch's
+    recorded pass. Returns (fm_resolve's entry of the kernels line, the
+    uint32 walk's entry)."""
+    import torch
+    from bowtie2_server_tpu_torch.ops import fm as dfm
+    from bowtie2_server_tpu_torch.scripts import bench_fm
+    (fm, rows, valid), _ = big_cap["resolve_rows_body"]
+    P = rows.shape[0]
+    run = hold(f"fm_resolve (big batch, fw): {P} lanes "
+               f"({int(valid.sum())} valid)", None,
+               lambda _: dfm.resolve_rows_body(fm, rows, valid),
+               lambda _: dfm.resolve_rows_body_torch(fm, rows, valid),
+               "fm_resolve_kernel")
+    steps = bench_fm.resolve_steps(fm, rows, valid)
+    table = (fm.side.numel() + fm.mark.numel()) * 4
+    res = summary([run], bench_fm.resolve_bound(steps, valid, ceiling,
+                                                table))
+    res.update(lanes=P, valid=int(valid.sum()), lf_steps=int(steps.sum()),
+               max_steps=int(steps.max()),
+               chain_floor_ms=int(steps.max()) * lat)
+    log(f"  fm_resolve: {res['lf_steps']} LF steps in {res['valid']} valid "
+        f"lanes (at most {res['max_steps']}); bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}), {res['frac_of_bound']:.4f} of it; "
+        f"dependent-chain floor {res['chain_floor_ms']:.4f} ms")
+    # exact on an edge tile: the first blocks' rows (rows marked at step 0
+    # among them), the primary row, row 0, the last row, random rows, a
+    # tenth invalid, in both directions
+    edge_err = 0
+    rng = np.random.default_rng(53)
+    for name in ("fw", "mirror"):
+        d = getattr(idx, name)
+        dev_fm = dfm.to_device(d, "cuda", big=True)
+        r = np.concatenate([np.arange(200), [d.primary, 0, d.n - 1],
+                            rng.integers(0, d.n, 4000)]).astype(np.int32)
+        v = rng.random(len(r)) < 0.9
+        v[:203] = True
+        tr, tv = torch.from_numpy(r).cuda(), torch.from_numpy(v).cuda()
+        got = dfm.resolve_rows_body(dev_fm, tr, tv)
+        want = dfm.resolve_rows_body_torch(dev_fm, tr, tv)
+        sa = torch.from_numpy(d.sa[r].astype(np.int64)).cuda()
+        edge_err = max(edge_err, int((got - want).abs().max()),
+                       int((dfm.widen(got) - sa)[tv].abs().max()))
+    log(f"fm_resolve on the edge tiles (fw and mirror, against the plain "
+        f"version and the full SA): max_abs_err={edge_err}")
+    res["max_abs_err"] = max(res["max_abs_err"], edge_err)
+    # the uint32 instantiation of fm_walk on the big batch's recorded pass
+    (fm, pat, lens), _ = big_cap["backward_search_record_body"]
+    if not fm.big:
+        raise RuntimeError("the captured recorded pass is not a big index's")
+    Pw, L = pat.shape
+    run = hold(f"fm_walk uint32 record (big batch): {Pw} lanes x {L} steps",
+               None, lambda _: dfm.backward_search_record_body(fm, pat,
+                                                               lens),
+               lambda _: dfm.backward_search_record_body_torch(fm, pat,
+                                                               lens),
+               "fm_walk_kernel")
+    rec = dfm.backward_search_record_body(fm, pat, lens)
+    per = bench_fm.walk_steps(pat, lens, *map(dfm.widen, rec))
+    walk = summary([run], bench_fm.walk_bound(
+        int(per.sum()), Pw, L, "record", ceiling, fm.side.numel() * 4,
+        pat.numel()))
+    walk.update(lanes=Pw, lf_steps=int(per.sum()),
+                chain_floor_ms=int(per.max()) * lat)
+    log(f"  fm_walk uint32: bound {walk['bound_ms']:.4f} ms "
+        f"({walk['bound_by']}), {walk['frac_of_bound']:.4f} of it; "
+        f"dependent-chain floor {walk['chain_floor_ms']:.4f} ms")
+    for name, r in (("fm_resolve", res), ("fm_walk (uint32)", walk)):
+        if r["max_abs_err"] != 0:
+            raise RuntimeError(f"{name}: kernel disagrees with its plain "
+                               f"version (max_abs_err {r['max_abs_err']})")
+    return res, walk
+
+
 def sam_lines(recs, ref_names):
     """SAM lines of a batch's records: a lazy record view or, from the host
     path and under -k/-a, a list (secondary records after their
@@ -1082,11 +1277,12 @@ def sam_lines(recs, ref_names):
     return [sam_record(r, ref_names) for r in items]
 
 
-def parity_unpaired(label, idx, pol, names, seqs, quals, results=True):
+def parity_unpaired(label, idx, pol, names, seqs, quals, results=True,
+                    force_big=None):
     """One batch through UnpairedAligner on the card and on the CPU, which
     must give identical SAM lines and, with `results`, identical decoded
     batch results of the fused pipeline. Returns (the card run's kernel
-    launches, its SAM line count)."""
+    launches, its SAM lines)."""
     import torch
     from bowtie2_server_tpu_torch.align.candgen import BatchResult
     from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner
@@ -1094,7 +1290,8 @@ def parity_unpaired(label, idx, pol, names, seqs, quals, results=True):
     from bowtie2_server_tpu_torch.ops import kernels
     sams, res = {}, {}
     for dev in ("cuda", "cpu"):
-        al = UnpairedAligner(idx, policy=pol, device=dev)
+        al = UnpairedAligner(idx, policy=pol, device=dev,
+                             force_big=force_big)
         batch = make_batch(names, seqs, quals)
         if results:
             res[dev] = al.collect(batch).res
@@ -1119,13 +1316,14 @@ def parity_unpaired(label, idx, pol, names, seqs, quals, results=True):
     log(f"CUDA vs CPU, {label}: {len(names)} reads, "
         f"{'BatchResult fields and ' if results else ''}"
         f"{len(sams['cuda'])} SAM lines identical; card launches {launches}")
-    return launches, len(sams["cuda"])
+    return launches, sams["cuda"]
 
 
 def phase_parity(idx, contigs, n=2048):
     from bowtie2_server_tpu_torch.align.pipeline import SearchPolicy
     names, seqs, quals, _ = make_reads(13, contigs, n)
-    parity_unpaired("main path", idx, SearchPolicy(), names, seqs, quals)
+    return parity_unpaired("main path", idx, SearchPolicy(), names, seqs,
+                           quals)[1]
 
 
 def phase_parity_short(idx, contigs, n=2048):
@@ -1181,8 +1379,9 @@ def phase_parity_host(n=256, n_unit=16):
     full = build_index(fa)
     for label, khits in (("-k 2000", 2000), ("-a", ALL_HITS)):
         pol = SearchPolicy(khits=khits, mhits=0, msample=False)
-        launches, n_lines = parity_unpaired(f"host path, {label}", full, pol,
-                                            names, seqs, quals, results=False)
+        launches, lines = parity_unpaired(f"host path, {label}", full, pol,
+                                          names, seqs, quals, results=False)
+        n_lines = len(lines)
         if launches["fm_walk"] == 0 or n_lines < n + 100 * n_unit:
             raise RuntimeError(f"{label}: fm_walk launches "
                                f"{launches['fm_walk']}, {n_lines} SAM lines")
@@ -1195,23 +1394,55 @@ def phase_parity_host(n=256, n_unit=16):
                            "fm_walk")
 
 
-def phase_parity_paired(pidx, chroms, n=512):
+def phase_parity_paired(pidx, chroms, n=512, force_big=None):
+    import torch
     from bowtie2_server_tpu_torch.align.paired import PairedAligner
     from bowtie2_server_tpu_torch.io.fastq import make_batch
     from bowtie2_server_tpu_torch.io.sam import sam_record
+    from bowtie2_server_tpu_torch.ops import kernels
     names, s1, s2, quals, _ = make_pairs(23, chroms, n)
     sams = {}
     for dev in ("cuda", "cpu"):
-        pal = PairedAligner(pidx, device=dev)
+        kernels.reset_launches()
+        pal = PairedAligner(pidx, device=dev, force_big=force_big)
         pairs = pal.align_batch(make_batch(names, s1, quals),
                                 make_batch(names, s2, quals))
         sams[dev] = [sam_record(r, pidx.ref_names)
                      for pr in pairs for r in pr]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
     diff = sum(a != b for a, b in zip(sams["cuda"], sams["cpu"]))
     if diff or len(sams["cuda"]) != 2 * n:
         raise RuntimeError(f"{diff} paired SAM lines differ between CUDA "
-                           f"and CPU")
-    log(f"CUDA vs CPU: {n} pairs, SAM lines identical")
+                           f"and CPU{' (force_big)' if force_big else ''}")
+    log(f"CUDA vs CPU{', force_big' if force_big else ''}: {n} pairs, SAM "
+        f"lines identical; card launches {launches}")
+    return launches
+
+
+def phase_parity_big(idx, contigs, pidx, chroms, small, n=2048,
+                     n_pairs=512):
+    """The big-index path forced on both genomes, CUDA against CPU: phase
+    5's n reads (and the card's SAM against `small`, the small path's SAM
+    lines of those reads on the card) and n_pairs pairs."""
+    from bowtie2_server_tpu_torch.align.pipeline import SearchPolicy
+    names, seqs, quals, _ = make_reads(13, contigs, n)
+    launches, big = parity_unpaired("force_big", idx, SearchPolicy(), names,
+                                    seqs, quals, force_big=True)
+    if launches["fm_resolve"] == 0:
+        raise RuntimeError("the force_big card run never launched "
+                           "fm_resolve")
+    diff = sum(a != b for a, b in zip(big, small))
+    if diff or len(big) != len(small):
+        raise RuntimeError(f"{diff} SAM lines differ between the big and "
+                           f"the small path on the card")
+    log(f"big against small path on the card: {len(big)} SAM lines "
+        f"identical")
+    launches = phase_parity_paired(pidx, chroms, n_pairs, force_big=True)
+    if launches["fm_resolve"] == 0:
+        raise RuntimeError("the force_big pair run never launched "
+                           "fm_resolve")
 
 
 def phase_parity_wide(idx, contigs, n=2048):
@@ -1384,14 +1615,22 @@ def main(argv=None):
     launches, main_res = phase_main(idx, contigs)
     sr_launches, sr_res, sr_cap = phase_short(idx, contigs)
     n1_res, n1_cap = phase_n1(idx, contigs)
-    times.update(phase_fm_kernels(
-        idx, sr_cap, n1_cap, times["alu_probe"]["ceiling_ops_per_s"]))
+    ceiling = times["alu_probe"]["ceiling_ops_per_s"]
+    times.update(phase_fm_kernels(idx, sr_cap, n1_cap, ceiling))
     del sr_cap, n1_cap              # their tensors: the card's memory back
+    big_launches, big_res, big_cap = phase_big(idx, contigs)
+    times["fm_resolve"], times["fm_walk"]["uint32"] = phase_big_kernels(
+        idx, big_cap, ceiling, times["fm_walk"]["step_latency_ms"])
+    times["fm_walk"]["max_abs_err"] = max(
+        times["fm_walk"]["max_abs_err"],
+        times["fm_walk"]["uint32"]["max_abs_err"])
+    del big_cap
     pe_launches, pe_res = phase_paired(pidx, chroms)
-    phase_parity(idx, contigs)
+    small_sam = phase_parity(idx, contigs)
     phase_parity_short(idx, contigs)
     phase_parity_host()
     phase_parity_paired(pidx, chroms)
+    phase_parity_big(idx, contigs, pidx, chroms, small_sam)
     wide_launches = phase_parity_wide(idx, contigs)
     phase_cli(base, contigs)
     phase_cli_opts(base, contigs)
@@ -1399,19 +1638,22 @@ def main(argv=None):
     # each kernel's launches on its path: the unpaired main path for the
     # banded and rectangle kernels (the paired path is checked above), the
     # short-read path for the FM kernels, the --dpad 32 batch for the
-    # wide-band kernel, the DP microbench for the probe
+    # wide-band kernel, the DP microbench for the probe, the big-index path
+    # for fm_resolve
     path_launches = dict(sw_banded=launches["sw_banded"],
                          sw_banded_general=launches["sw_banded_general"],
                          sw=launches["sw"],
                          sw_banded_wide=wide_launches["sw_banded_wide"],
                          alu_probe=dp_launches["alu_probe"],
                          fm_walk=sr_launches["fm_walk"],
-                         fm_lf_step=sr_launches["fm_lf_step"])
+                         fm_lf_step=sr_launches["fm_lf_step"],
+                         fm_resolve=big_launches["fm_resolve"])
     log(f"launches on the paired path: {pe_launches}")
     log(json.dumps({"paths": {"unpaired": main_res, "paired": pe_res,
-                              "short": sr_res, "n1": n1_res}}))
+                              "short": sr_res, "n1": n1_res,
+                              "big": big_res}}))
     # no PyTorch call computes any of these functions (a DP, the probe's
-    # chain, an FM walk): library_ms is null
+    # chain, an FM walk, a walk-left): library_ms is null
     kern = [dict(name=name, route="cuda",
                  source=f"bowtie2_server_tpu_torch/ops/csrc/{src}",
                  replaces=tpu, launches=path_launches[name], library_ms=None,

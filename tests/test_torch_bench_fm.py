@@ -81,3 +81,36 @@ def test_walk_bound_counts(tile):
                                  side_bytes=10**6, pat_bytes=640)
     assert by == "operations"
     assert ms == pytest.approx(1000 * bench_fm.OPS_PER_STEP / 1e6 * 1e3)
+
+
+def test_resolve_steps_follow_the_sa():
+    """The walk-left steps SA[row] % 16 times before it reaches a marked
+    row (its SA value falls by one a step): the counts resolve_steps gives
+    the bound, lane by lane, on a big layout forced on a small index."""
+    g = fm_genome(5)
+    idx = build_index(f">g\n{dna.decode(g)}\n")
+    d = idx.fw
+    fm = tfm.to_device(d, "cpu", big=True)
+    rng = np.random.default_rng(3)
+    rows = rng.integers(0, d.n, 2000).astype(np.int32)
+    rows[0] = d.primary
+    valid = torch.from_numpy(rng.random(2000) < 0.8)
+    steps = bench_fm.resolve_steps(fm, torch.from_numpy(rows), valid)
+    want = np.where(valid.numpy(), d.sa[rows].astype(np.int64) % 16, 0)
+    np.testing.assert_array_equal(steps.numpy(), want)
+    assert steps.max() == 15
+
+
+def test_resolve_bound_counts():
+    """A lane with s steps makes s + 1 trips of 48 bytes (at most the mark
+    and side tables), loads one sample and moves its 9 bytes; the
+    operations are the trips' tests, the steps' LF and a rank a lane."""
+    steps = torch.tensor([0, 3, 15, 0])
+    valid = torch.tensor([True, True, True, False])
+    ms, by = bench_fm.resolve_bound(steps, valid, 3e13, table_bytes=10**6)
+    want = (21 * 48 + 3 * 4 + 4 * 9) / HBM_BYTES_PER_S * 1e3
+    assert by == "bytes" and ms == pytest.approx(want)
+    ms, by = bench_fm.resolve_bound(steps, valid, 1e6, table_bytes=10**6)
+    ops = (21 * bench_fm.OPS_RESOLVE_TEST + 18 * bench_fm.OPS_RESOLVE_STEP
+           + 3 * bench_fm.OPS_RESOLVE_HIT)
+    assert by == "operations" and ms == pytest.approx(ops / 1e6 * 1e3)

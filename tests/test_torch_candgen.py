@@ -162,9 +162,9 @@ def test_nonzero_fixed_matches_jnp_nonzero():
 
 def test_dispatch_refuses_unported_shapes(genome, monkeypatch):
     """What the port still refuses: multi-device meshes (ROADMAP Queue A
-    item 13) and big indexes (item 12), both at the aligner and in
-    convert.cfg_from_fields. Short reads, -N 1 and -k above 1024 run (see
-    tests/test_torch_short.py)."""
+    item 13). Big indexes run (tests/test_torch_big.py): convert carries a
+    big config across, and an index past the threshold takes the big
+    layout on its own."""
     from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner as TAl
     from bowtie2_server_tpu_torch.io.fastq import make_batch
     from bowtie2_server_tpu_torch.ops import fm as tfm
@@ -172,9 +172,14 @@ def test_dispatch_refuses_unported_shapes(genome, monkeypatch):
     short = make_batch(["s"], [b"ACGTACGTAC"], [b"IIIIIIIIII"])
     with pytest.raises(NotImplementedError, match="item 13"):
         TAl(idx, mesh=object(), device="cpu").align_batch(short)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        convert.cfg_from_fields({"sw": {}, "big": True})
-    # an index past the threshold takes the big layout, not ported
+    cfg = convert.cfg_from_fields({"sw": {}, "B": 256, "L": 32, "S": 4,
+                                   "R": 2, "E": 16, "seed_len": 20, "K": 64,
+                                   "k1": 4096, "chunk_w": 8, "n_chunks": 2,
+                                   "NH": 8192, "C_pre": 8192, "C_max": 4096,
+                                   "big": True, "off_rate": 4})
+    assert cfg.big
+    # an index past the threshold takes the big layout
     monkeypatch.setattr(tfm, "BIG_THRESHOLD", idx.n)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TAl(idx, device="cpu").align_batch(short)
+    al = TAl(idx, device="cpu")
+    assert al.big and al.dev.big and al.candgen.big
+    assert len(al.align_batch(short)) == 1

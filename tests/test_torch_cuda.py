@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel equals its plain torch version on
 the same CUDA tensors, and UnpairedAligner and PairedAligner on 'cuda'
 write the same SAM as on 'cpu'. Every test here needs a CUDA device and
-skips without one; none imports JAX, so on a machine with the card (and no
+skips without one (the big-index cases force the big layout on small
+genomes); none imports JAX, so on a machine with the card (and no
 JAX) run them with
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -154,6 +155,57 @@ def test_fm_kernels_equal_plain(direction, fm_index, cuda_device):
     assert int(want["phase0"][5]) > 0      # some branches survived
 
 
+@pytest.mark.parametrize("direction", ["fw", "mirror"])
+def test_fm_kernels_u32_equal_plain(direction, fm_index, cuda_device):
+    """The uint32 instantiations of fm_walk and fm_lf_step (a big layout
+    forced on the small index) against the plain torch versions on the
+    same layout and against the int32 instantiations on the small one: the
+    rows are below 2^31, so every output has the same bits."""
+    from bowtie2_server_tpu_torch.ops import fm as tfm
+    d = getattr(fm_index, direction)
+    text = fm_index.joined if direction == "fw" else fm_index.joined[::-1]
+    args = fm_edge_tile(8, text, d.n, d.primary)
+    want = _fm_run(tfm.to_device(d, "cpu", big=True), "cpu", *args)
+    small = _fm_run(tfm.to_device(d, cuda_device), cuda_device, *args)
+    w0, l0 = kernels.LAUNCHES["fm_walk"], kernels.LAUNCHES["fm_lf_step"]
+    fm = tfm.to_device(d, cuda_device, big=True)
+    assert fm.big
+    got = _fm_run(fm, cuda_device, *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fm_walk"] == w0 + 5
+    assert kernels.LAUNCHES["fm_lf_step"] == l0 + 2
+    for key in want:
+        for g, s, w in zip(got[key], small[key], want[key]):
+            assert torch.equal(g.cpu(), w), key
+            assert torch.equal(g, s), key
+
+
+@pytest.mark.parametrize("direction", ["fw", "mirror"])
+def test_fm_resolve_equals_plain(direction, fm_index, cuda_device):
+    """fm_resolve against resolve_rows_body_torch and the full SA: random
+    rows, every row of the first blocks (rows marked at step 0 among
+    them), the primary row, row 0, the last row, a tenth invalid."""
+    from bowtie2_server_tpu_torch.ops import fm as tfm
+    d = getattr(fm_index, direction)
+    rng = np.random.default_rng(9)
+    rows = np.concatenate([np.arange(200), [d.primary, 0, d.n - 1],
+                           rng.integers(0, d.n, 4000)]).astype(np.int32)
+    valid = rng.random(len(rows)) < 0.9
+    valid[:203] = True
+    assert (d.sa[rows[:200]] % 16 == 0).any()
+    T = lambda a, dev: torch.from_numpy(a).to(dev)
+    want = tfm.resolve_rows_body(tfm.to_device(d, "cpu", big=True),
+                                 T(rows, "cpu"), T(valid, "cpu"))
+    n0 = kernels.LAUNCHES["fm_resolve"]
+    got = tfm.resolve_rows_body(tfm.to_device(d, cuda_device, big=True),
+                                T(rows, cuda_device), T(valid, cuda_device))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fm_resolve"] == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    np.testing.assert_array_equal(want.numpy()[valid],
+                                  d.sa[rows[valid]].astype(np.int32))
+
+
 def _workload(seed=3, n=3000):
     """A 60 kbp chromosome plus 150 contigs of 1 kbp; every other read
     starts within 40 bases of a contig end, so one batch has more than 128
@@ -195,30 +247,38 @@ def _sams(recs, names):
     return [sam_record(r, names) for r in items]
 
 
+@pytest.mark.parametrize("big", [False, True], ids=["small", "big"])
 @pytest.mark.parametrize("band", list(BANDS))
 @pytest.mark.parametrize("local", [False, True], ids=["e2e", "local"])
-def test_aligner_cuda_equals_cpu(local, band, cuda_device):
+def test_aligner_cuda_equals_cpu(local, band, big, cuda_device):
+    """Also under force_big: the big-index path (the general shape, the
+    uint32 walks and fm_resolve) on the same index."""
     from bowtie2_server_tpu_torch.align.pipeline import (SearchPolicy,
                                                          UnpairedAligner)
     from bowtie2_server_tpu_torch.io.fastq import make_batch
     from bowtie2_server_tpu_torch.utils.presets import preset_params
     idx, names, seqs, quals = _workload()
-    if local:      # local winners take the host traceback: fewer reads
+    if local or big:   # local winners take the host traceback, and the
+        # big path's plain walks are slow on the CPU: fewer reads
         names, seqs, quals = names[:600], seqs[:600], quals[:600]
     sc, pol = preset_params(None, local)
     pol = SearchPolicy(**dict(pol, maxhalf=BANDS[band]))
     sams = {}
     for dev in ("cpu", cuda_device):
         kernels.reset_launches()
-        al = UnpairedAligner(idx, scoring=sc, policy=pol, device=dev)
-        assert f"K{al.band}" == band
+        al = UnpairedAligner(idx, scoring=sc, policy=pol, device=dev,
+                             force_big=big)
+        assert f"K{al.band}" == band and al.big == big
         recs = al.align_batch(make_batch(names, seqs, quals))
         sams[str(dev)] = _sams(recs, idx.ref_names)
     assert sams["cuda"] == sams["cpu"]
     which = "sw_banded" if band != "K256" else "sw_banded_wide"
     assert kernels.LAUNCHES[which] >= 1
-    if not local:
+    if not local and not big:
         assert kernels.LAUNCHES["sw"] >= 1
+    if big:
+        assert kernels.LAUNCHES["fm_resolve"] >= 2
+        assert kernels.LAUNCHES["fm_walk"] >= 1
 
 
 @pytest.mark.parametrize("band", ["K64", "K128"])

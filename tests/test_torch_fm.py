@@ -197,9 +197,16 @@ def test_phase_bodies_equal(fms, direction):
 
 
 def test_big_index_refused(fms):
+    """A big index is no longer refused: to_device builds its sampled-SA
+    layout (tests/test_torch_big.py holds it against the JAX package).
+    What is refused is the walk-left on an index that keeps its full SA."""
     d = fms["fw"][3]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tfm.to_device(d, "cpu", big=True)
+    big = tfm.to_device(d, "cpu", big=True)
+    assert big.big and big.mark is not None and big.sa.numel() == 1
+    small = tfm.to_device(d, "cpu")
+    rows = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="full SA"):
+        tfm.resolve_rows_body(small, rows, rows > 0)
 
 
 def test_walks_refuse_other_devices(fms):
