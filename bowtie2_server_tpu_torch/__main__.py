@@ -1,7 +1,9 @@
-"""Command line of the port (ref: the bowtie2/bowtie2-build wrappers).
+"""Command line of the port (ref: the bowtie2/bowtie2-build/bowtie2-inspect
+wrappers and the bowtie2-server client/server pair).
 
 Usage:
   python -m bowtie2_server_tpu_torch build <ref.fa> <index_base>
+         [--bt2 [-o offrate] [-t ftabchars]]
   python -m bowtie2_server_tpu_torch align -x <index_base> -U <reads.fq>
          [-S out.sam] [--end-to-end | --local] [--seed N] [SEARCH]
          [--device cuda]
@@ -11,27 +13,47 @@ Usage:
          [SEARCH] [--device cuda]
   SEARCH: [-N 0|1] [-L seedlen] [-i func] [-k N | -a] [--no-1mm-upfront]
           [--no-exact-upfront]
+  python -m bowtie2_server_tpu_torch align -x <index> --server-host H
+         --server-port P (-U <reads.fq> | -1 <m1.fq> -2 <m2.fq>) [-S out.sam]
+  python -m bowtie2_server_tpu_torch inspect <index_base> [-n | -s]
+  python -m bowtie2_server_tpu_torch server -x <index_base> [--port 8080]
+         [--host 0.0.0.0] [--local] [--preset P] [--batch 4096]
+         [--workers N] [--remote-worker HOST:PORT ...] [--device cuda | --cpu]
+  python -m bowtie2_server_tpu_torch client [--host H] [--port P] -x <index>
+         (-U <reads.fq> | -1 <m1.fq> -2 <m2.fq>) [-S out.sam] [--passthrough]
 
 `align` writes the same SAM records and alignment summary as
-`python -m bowtie2_server_tpu align` with the same options. Every other
-option of that CLI is refused: the rest of the option surface is ROADMAP
-Queue A item 14.
+`python -m bowtie2_server_tpu align` with the same options, and `server`,
+`client`, `inspect` and `build --bt2` behave as that CLI's. An index is
+either the port's `.fm.npz` or a `.bt2`/`.bt2l` file set. Every other
+option and subcommand of that CLI is refused: they are ROADMAP Queue A
+item 14.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 from collections import deque
 
 _BATCH = 2048   # reads per batch, the reference CLI's --batch default
 _REFUSED = ("not supported by the PyTorch port yet (ROADMAP Queue A item "
-            "14: serving and the rest of the CLI)")
+            "14: the rest of the CLI)")
 
 
 def cmd_build(args):
-    from .index.build import build_index
     t0 = time.time()
+    if args.bt2:
+        # interchange format, byte-identical to bowtie2-build defaults
+        # (ref: bt2_io.cpp:801 writeFromMemory; tests/test_torch_bt2.py)
+        from .index.bt2_writer import write_bt2_from_fasta
+        write_bt2_from_fasta(args.ref, args.base, off_rate=args.offrate,
+                             ftab_chars=args.ftabchars)
+        print(f"built .bt2 index {args.base} in {time.time()-t0:.1f}s",
+              file=sys.stderr)
+        return
+    from .index.build import build_index
     idx = build_index(args.ref)
     idx.save(args.base)
     print(f"built index {args.base} ({idx.n} bp, {idx.n_refs} refs) "
@@ -64,7 +86,17 @@ def search_policy(args):
 
 
 def cmd_align(args):
-    from .index.fm import FmIndex
+    if args.srv_port is not None or args.srv_host is not None:
+        # drop-in client mode: the reference client binary takes
+        # --server-host/--server-port on its align command line
+        # (ref: bt2_search.cpp:677-679, env vars :526-536)
+        args.host = args.srv_host or os.environ.get(
+            "BT2CLT_SERVER_HOST", "localhost")
+        args.port = args.srv_port or int(os.environ.get(
+            "BT2CLT_SERVER_PORT", "8080"))
+        args.index = str(args.index).rsplit("/", 1)[-1]
+        return cmd_client(args)
+    from .index.bt2_reader import detect_index
     from .io.metrics import AlnSummary
     from .io.sam import sam_header
 
@@ -73,7 +105,8 @@ def cmd_align(args):
             (paired and None in (args.m1, args.m2)):
         sys.exit("Error: align needs -x <index_base> and either -U "
                  "<reads.fq> or -1 <m1.fq> -2 <m2.fq>")
-    idx = FmIndex.load(args.index)
+    _, loader = detect_index(args.index)
+    idx = loader(args.index)
     sc, pol = search_policy(args)
     names = [n.split()[0] if n.split() else n for n in idx.ref_names]
     out = open(args.S, "w") if args.S else sys.stdout
@@ -169,6 +202,84 @@ def _align_unpaired(args, idx, sc, pol, names, out, summ):
     return n, al.device
 
 
+def cmd_inspect(args):
+    """ref: bt2_inspect.cpp:255-330 — names, summary, or FASTA
+    reconstruction. The index keeps the full reference (with Ns), so
+    reconstruction is a direct dump rather than an LF-walk."""
+    from .index.bt2_reader import detect_index
+    from .utils import dna
+    _, loader = detect_index(args.base)
+    idx = loader(args.base)
+    if args.names:
+        for n in idx.ref_names:
+            print(n)
+        return
+    if args.summary:
+        print(f"Sequence-count\t{idx.n_refs}")
+        for i, n in enumerate(idx.ref_names):
+            print(f"Sequence-{i}\t{n}\t{int(idx.ref_lens[i])}")
+        return
+    for i, name in enumerate(idx.ref_names):
+        s = int(idx.ref_full_start[i])
+        seq = dna.decode(idx.ref_full[s : s + int(idx.ref_lens[i])])
+        print(f">{name}")
+        for j in range(0, len(seq), 60):
+            print(seq[j : j + 60])
+
+
+def cmd_server(args):
+    from .server.bt2srv import run_server
+    run_server(args.index, port=args.port, host=args.host, local=args.local,
+               preset=args.preset, batch_size=args.batch,
+               n_workers=args.n_workers,
+               remote_workers=args.remote_workers or None,
+               device="cpu" if args.cpu else args.device)
+
+
+def cmd_client(args):
+    from .io.fastq import iter_fastq
+    from .server.client import Bt2Client
+    passthrough = getattr(args, "passthrough", False)
+    cl = Bt2Client(args.host, args.port, args.index,
+                   passthrough=passthrough)
+    keep = passthrough
+    # the client substitutes %04X slot names on the wire and restores the
+    # original names on receipt (ref: pat.h:2464-2550); callers pass raw
+    # names
+    if args.m1 and args.m2:
+        def rows():
+            for b1, b2 in zip(
+                    iter_fastq(args.m1, batch_size=1024, keep_orig=keep),
+                    iter_fastq(args.m2, batch_size=1024, keep_orig=keep)):
+                for i in range(len(b1)):
+                    r = (b1.names[i], b1.raw_seq[i], b1.raw_qual[i],
+                         b2.names[i], b2.raw_seq[i], b2.raw_qual[i])
+                    if keep and b1.origs is not None:
+                        r = r + ((b1.origs[i], b2.origs[i]),)
+                    yield r
+    else:
+        def rows():
+            for b in iter_fastq(args.U, batch_size=1024, keep_orig=keep):
+                for i in range(len(b)):
+                    r = (b.names[i], b.raw_seq[i], b.raw_qual[i])
+                    if keep and b.origs is not None:
+                        r = r + (b.origs[i],)
+                    yield r
+    cl.send_reads(rows())
+    out = open(args.S, "w") if args.S else sys.stdout
+    n = 0
+    for line in cl.finish():
+        out.write(line + "\n")
+        n += 1
+    print(f"received {n} SAM records", file=sys.stderr)
+    if args.S:
+        out.close()
+
+
+def cmd_refused(args):
+    sys.exit(f"Error: {args.cmd}: {_REFUSED}")
+
+
 def make_parser():
     p = argparse.ArgumentParser(prog="bowtie2_server_tpu_torch",
                                 allow_abbrev=False)
@@ -177,6 +288,16 @@ def make_parser():
     pb = sub.add_parser("build", allow_abbrev=False)
     pb.add_argument("ref")
     pb.add_argument("base")
+    pb.add_argument("-o", "--offrate", type=int, default=4,
+                    help="SA sampling exponent for --bt2 output "
+                    "(ref: bowtie2-build -o)")
+    pb.add_argument("-t", "--ftabchars", type=int, default=10,
+                    help="ftab k-mer length for --bt2 output "
+                    "(ref: bowtie2-build -t)")
+    pb.add_argument("--bt2", action="store_true",
+                    help="emit the reference .bt2 six-file format "
+                    "(byte-identical to bowtie2-build defaults) instead "
+                    "of the native .fm.npz")
     pb.set_defaults(fn=cmd_build)
 
     pa = sub.add_parser("align", allow_abbrev=False)
@@ -220,7 +341,66 @@ def make_parser():
                     "(ref: do1mmUpFront, bt2_search.cpp:3634)")
     pa.add_argument("--device", default="cuda",
                     help="torch device the pipeline runs on (default cuda)")
+    pa.add_argument("--server-host", dest="srv_host", default=None,
+                    help="client drop-in: align via a running server "
+                    "(ref: opts.h:166; env BT2CLT_SERVER_HOST)")
+    pa.add_argument("--server-port", dest="srv_port", type=int, default=None,
+                    help="client drop-in: align via a running server "
+                    "(ref: opts.h:167; env BT2CLT_SERVER_PORT)")
     pa.set_defaults(fn=cmd_align)
+
+    pi = sub.add_parser("inspect", allow_abbrev=False)
+    pi.add_argument("base")
+    pi.add_argument("-n", dest="names", action="store_true")
+    pi.add_argument("-s", dest="summary", action="store_true")
+    pi.set_defaults(fn=cmd_inspect)
+
+    ps = sub.add_parser("server", allow_abbrev=False)
+    ps.add_argument("-x", dest="index", required=True)
+    ps.add_argument("--port", type=int, default=8080)
+    ps.add_argument("--host", default="0.0.0.0")
+    ps.add_argument("--local", action="store_true")
+    ps.add_argument("--preset", default=None)
+    ps.add_argument("--device", default="cuda",
+                    help="torch device the packs are aligned on "
+                    "(default cuda; with --workers N, one worker on each "
+                    "of N cards)")
+    ps.add_argument("--cpu", action="store_true",
+                    help="the same as --device cpu")
+    ps.add_argument("--batch", type=int, default=4096)
+    ps.add_argument("--workers", dest="n_workers", type=int, default=1,
+                    help="devices serving packs, one worker each "
+                    "(round-robin dispatch across connections; ref: the "
+                    "shared worker pool, pat.cpp:2016-2086)")
+    ps.add_argument("--remote-worker", dest="remote_workers",
+                    action="append", default=[], metavar="HOST:PORT",
+                    help="add a backend BT2SRV server (one per remote "
+                    "host) to the worker pool; packs relay over the wire "
+                    "protocol and merge in submission order (multi-host "
+                    "scale-out, SURVEY §2.3 row 3)")
+    ps.set_defaults(fn=cmd_server)
+
+    pc = sub.add_parser("client", allow_abbrev=False)
+    pc.add_argument("--host", "--server-host",
+                    default=os.environ.get("BT2CLT_SERVER_HOST",
+                                           "localhost"))
+    pc.add_argument("--port", "--server-port", type=int,
+                    default=int(os.environ.get("BT2CLT_SERVER_PORT",
+                                               "8080")))
+    pc.add_argument("-x", dest="index", default="index")
+    pc.add_argument("-U", dest="U", default=None)
+    pc.add_argument("-1", dest="m1", default=None)
+    pc.add_argument("-2", dest="m2", default=None)
+    pc.add_argument("-S", dest="S", default=None)
+    pc.add_argument("--passthrough", action="store_true",
+                    help="re-emit the original input record after each SAM "
+                         "record (restored client-side from the slot map; "
+                         "ref: pat.cpp:2286-2336)")
+    pc.set_defaults(fn=cmd_client)
+
+    # the JAX CLI's standalone DP solver is not ported yet
+    pd = sub.add_parser("dp", allow_abbrev=False)
+    pd.set_defaults(fn=cmd_refused)
     return p
 
 

@@ -1,0 +1,138 @@
+"""Multi-worker pack dispatch with per-connection fairness (ref:
+pat.cpp:2016-2086 — per-connection `psq_idle` queues feeding the shared
+`psq_ready_` pool consumed by all worker threads; SURVEY §2.3 row 3 maps
+that scale-out axis to dispatching read packs across device groups).
+
+Architecture: N workers, each owning one DEVICE GROUP — here one torch
+device (the CPU, or one CUDA card; the index is replicated per group).
+Packs are taken round-robin ACROSS CONNECTIONS — one pack per connection
+per turn — so a connection streaming millions of reads cannot starve a
+small one (the reference gets the same property from its per-connection
+idle queues). Results return through per-pack futures; the caller writes
+them in submission order per connection, which makes the merged SAM stream
+deterministic (the OutputQueue role, outq.h:38).
+"""
+from __future__ import annotations
+
+import sys
+import threading
+from collections import OrderedDict, deque
+from concurrent.futures import Future
+
+import torch
+
+
+class AlignDispatcher:
+    def __init__(self, workers):
+        """workers: list of opaque worker contexts (e.g. aligner pairs);
+        one thread is spawned per worker. Work items are (fn, args) where
+        fn(worker_ctx, *args) runs on the worker's thread."""
+        self._workers = workers
+        self._lock = threading.Condition()
+        # conn_id -> deque[(fn, args, Future)]; OrderedDict gives a stable
+        # round-robin order over live connections
+        self._queues: "OrderedDict[int, deque]" = OrderedDict()
+        self._rr: deque[int] = deque()
+        self._stop = False
+        self._threads = [
+            threading.Thread(target=self._run, args=(w,), daemon=True,
+                             name=f"bt2srv-worker-{k}")
+            for k, w in enumerate(workers)]
+        for t in self._threads:
+            t.start()
+
+    @property
+    def n_workers(self) -> int:
+        return len(self._workers)
+
+    def submit(self, conn_id: int, fn, *args) -> Future:
+        """Enqueue one pack for `conn_id`; returns its Future."""
+        fut: Future = Future()
+        with self._lock:
+            q = self._queues.get(conn_id)
+            if q is None:
+                q = deque()
+                self._queues[conn_id] = q
+                self._rr.append(conn_id)
+            q.append((fn, args, fut))
+            self._lock.notify()
+        return fut
+
+    def close_connection(self, conn_id: int) -> None:
+        """Drop a finished connection from the round-robin (queued packs
+        still complete)."""
+        # nothing to do eagerly: empty queues are garbage-collected by
+        # _next_item; kept as an explicit API for symmetry/diagnostics
+        return None
+
+    def _next_item(self):
+        """Round-robin pop: one pack from the next connection that has
+        work. Must hold the lock."""
+        for _ in range(len(self._rr)):
+            cid = self._rr[0]
+            self._rr.rotate(-1)
+            q = self._queues.get(cid)
+            if q:
+                return q.popleft()
+            if q is not None and not q:
+                # empty queue: retire the connection from the rotation
+                self._queues.pop(cid, None)
+                try:
+                    self._rr.remove(cid)
+                except ValueError:
+                    pass
+        return None
+
+    def _run(self, worker):
+        while True:
+            with self._lock:
+                item = self._next_item()
+                while item is None and not self._stop:
+                    self._lock.wait()
+                    item = self._next_item()
+                if self._stop and item is None:
+                    return
+            fn, args, fut = item
+            try:
+                fut.set_result(fn(worker, *args))
+            except BaseException as e:   # surface to the awaiting handler
+                fut.set_exception(e)
+
+    def shutdown(self):
+        with self._lock:
+            self._stop = True
+            self._lock.notify_all()
+
+
+_MESH = ("device groups of more than one device (a data-parallel mesh) "
+         "are not ported yet (ROADMAP Queue A item 13)")
+
+
+def make_device_groups(n_workers: int, device) -> list[torch.device]:
+    """Partition the devices of `device` into n_workers disjoint groups of
+    one device each (ref: SURVEY §2.3 row 3 — per-host/per-group read
+    shards). device: 'cpu' (one group, the CPU), 'cuda' (every card) or
+    'cuda:k' (that card). Returns one torch.device per group.
+
+    A group of more than one device needs a data-parallel mesh, which the
+    port does not have: that raises NotImplementedError. Cards left over
+    when n_workers does not divide their count are named on stderr."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        devs = [torch.device("cuda", k)
+                for k in range(torch.cuda.device_count())]
+    else:
+        devs = [device]
+    n_workers = max(n_workers, 1)
+    if len(devs) < n_workers:
+        raise ValueError(
+            f"{n_workers} workers need >= {n_workers} devices "
+            f"(have {len(devs)})")
+    if len(devs) // n_workers > 1:
+        raise NotImplementedError(
+            f"{n_workers} worker(s) over {len(devs)} devices: " + _MESH)
+    if len(devs) > n_workers:
+        print(f"bt2srv: {n_workers} worker(s) use {devs[:n_workers]}; "
+              f"{[str(d) for d in devs[n_workers:]]} stay idle",
+              file=sys.stderr)
+    return devs[:n_workers]

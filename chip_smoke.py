@@ -53,6 +53,21 @@ prints no result line:
      at dispatch depth 2; both kernels must launch; placement of both mates
      at their planted origin and strand is checked; two more pair batches
      run under torch.profiler, as in phase 4;
+  SRV. the BT2SRV server (server/bt2srv.py) on the card: Bt2Server(device=
+     'cuda') on phase 4's genome and on phase PE's, each with the JAX
+     server's pack size (4096 reads) on an event loop of its own thread
+     (127.0.0.1, an ephemeral port); the packs run on the server's worker
+     thread. One raw tab6 request with fixed names to each (2048 reads of
+     18-100 bp, so packs take the fast and the general shape; 512 pairs)
+     must equal, line by line, Bt2Server._align_pack of the same rows on
+     CPU aligners; then 4 concurrent port clients of 16384 reads of 100 bp
+     (the main path's workload) and 2 of 8192 pairs: every finish() must
+     return, every read get one record and every pair two, with placement
+     at the planted origin checked by the restored names. Prints reads/s
+     and pairs/s (host clock, first send to last "All Done"), each
+     server's first request apart, and the kernel launches of the phase;
+     sw_banded must launch on the unpaired server and sw on the paired
+     one. A failed pack fails the phase: nothing is answered from the CPU;
   SR. the short-read path at full width: the general shape (FM walks on
      the card) on phase 4's genome, its fw and mirror FM directions on the
      card (full SA, sides, ftab); 36 bp reads (0-2 substitutions, half
@@ -177,6 +192,19 @@ BIG_BATCHES = 4     # measured batches, after one warm-up batch
 # leaves room for reads whose substitutions make another placement score
 # as well.
 ORIGIN_MIN_BIG = 0.99
+# phase SRV: the BT2SRV server on the card, driven through its socket.
+# Exactness: one raw tab6 request with fixed names to each server (reads of
+# 18-100 bp; pairs), held line by line against _align_pack on CPU
+# aligners. Load: concurrent port clients of phase 4's reads (the main
+# path's workload) and of phase PE's pairs.
+SRV_EXACT, SRV_EXACT_PAIRS = 2048, 512
+SRV_CLIENTS, SRV_READS = 4, 16384
+SRV_PAIR_CLIENTS, SRV_PAIRS = 2, 8192
+# Fractions of reads (and of pairs, both mates) placed at their planted
+# origin and strand: phases 4 and PE place all of them through the
+# aligners (1.0000); the limits are theirs.
+SRV_ORIGIN_MIN = ORIGIN_MIN_E2E
+SRV_PAIR_ORIGIN_MIN = PAIR_ORIGIN_MIN
 # the kernels device_shares reports, by a part of their names in the
 # profiler: the register banded kernel, the general kernel launched after
 # it in every call (it returns at once on the paths' scores), and the rect
@@ -819,6 +847,252 @@ def phase_paired(pidx, chroms):
         if launches[name] == 0:
             raise RuntimeError(f"the paired path never launched {name}")
     return launches, dict(pairs_per_s=pps, origin=frac, device=shares)
+
+
+def srv_placement(lines, origin, contig_names) -> float:
+    """Fraction of one unpaired client's reads at their planted origin and
+    strand, by restored name; origin maps a name to (contig id, 0-based
+    start, forward?). Raises unless every read has exactly one record."""
+    recs = {}
+    for line in lines:
+        f = line.split("\t", 4)
+        if f[0] in recs:
+            raise RuntimeError(f"server: read {f[0]} answered twice")
+        recs[f[0]] = f
+    if set(recs) != set(origin):
+        raise RuntimeError(f"server: {len(set(origin) - set(recs))} reads "
+                           f"unanswered, {len(set(recs) - set(origin))} "
+                           f"names not sent")
+    ok = sum(f[2] == contig_names[c] and int(f[3]) == s + 1
+             and ((int(f[1]) & 16) == 0) == bool(fw)
+             for name, (c, s, fw) in origin.items()
+             for f in (recs[name],))
+    return ok / len(origin)
+
+
+def srv_pair_placement(lines, origin, chrom_names) -> float:
+    """Fraction of one paired client's pairs with both mates at their
+    planted origin and strand (mate 1 forward, mate 2 reverse); origin
+    maps a name to (chromosome, mate-1 start, mate-2 start). Raises unless
+    every pair has its two records, mate 1's then mate 2's."""
+    recs = {}
+    for line in lines:
+        f = line.split("\t", 4)
+        recs.setdefault(f[0], []).append(f)
+    if set(recs) != set(origin) or any(len(v) != 2 for v in recs.values()):
+        raise RuntimeError("server: a pair without its two records")
+    ok = 0
+    for name, (c, s1, s2) in origin.items():
+        a, b = recs[name]
+        fa, fb = int(a[1]), int(b[1])
+        if not (fa & 0x40 and fb & 0x80):
+            raise RuntimeError(f"server: pair {name} records out of order")
+        ok += (a[2] == b[2] == chrom_names[c] and int(a[3]) == s1 + 1
+               and int(b[3]) == s2 + 1 and not fa & 16 and fb & 16 > 0)
+    return ok / len(origin)
+
+
+def srv_clients(port, loads):
+    """Runs one port Bt2Client a load at once, each in a thread of its own;
+    loads: lists of rows. Returns (each client's SAM lines, seconds from
+    the first send to the last "All Done"). Any client's failure (the
+    server failed a pack) fails the phase."""
+    import threading
+    from bowtie2_server_tpu_torch.server.client import Bt2Client
+    outs, errors, ends = [None] * len(loads), [], [0.0] * len(loads)
+
+    def run(k):
+        try:
+            cl = Bt2Client("127.0.0.1", port, "genome")
+            cl.send_reads(loads[k])
+            outs[k] = list(cl.finish())
+            ends[k] = time.time()
+        except Exception as e:          # re-raised on the phase's thread
+            errors.append((k, e))
+
+    threads = [threading.Thread(target=run, args=(k,), daemon=True)
+               for k in range(len(loads))]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors:
+        raise RuntimeError(f"server: client {errors[0][0]} failed: "
+                           f"{errors[0][1]!r}") from errors[0][1]
+    if any(o is None for o in outs):
+        raise RuntimeError("server: a client did not finish in 600 s")
+    return outs, max(ends) - t0
+
+
+def srv_timers(srv):
+    """Host seconds the server's worker spends in whole packs and, inside
+    them, in the aligners' align_batch (the rest of a pack is building
+    its batches and formatting SAM records); the timers wrap the bound
+    methods of this server instance only."""
+    t = {"packs": 0.0, "align": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                t[key] += time.perf_counter() - t0
+        return run
+
+    srv._align_pack = timed(srv._align_pack, "packs")
+    srv.up.align_batch = timed(srv.up.align_batch, "align")
+    srv.pal.align_batch = timed(srv.pal.align_batch, "align")
+    return t
+
+
+def srv_breakdown(label, t, wall):
+    """Logs and returns the worker's share of the load's wall time."""
+    out = dict(worker_s=t["packs"], align_s=t["align"],
+               worker_share=t["packs"] / wall,
+               align_share=t["align"] / wall,
+               pack_other_share=(t["packs"] - t["align"]) / wall)
+    log(f"server ({label}) load: the worker thread in packs "
+        f"{t['packs']:.3f} s of {wall:.3f} s wall ({out['worker_share']:.4f}"
+        f"): the aligners' align_batch {t['align']:.3f} s "
+        f"({out['align_share']:.4f}), batch building and SAM formatting "
+        f"{t['packs'] - t['align']:.3f} s ({out['pack_other_share']:.4f}); "
+        f"the rest of the wall is parsing, client work and waiting")
+    return out
+
+
+def srv_exact(srv, port, rows, cpu_worker, label):
+    """One raw tab6 request of `rows` (fixed names) to the card's server,
+    held line by line against Bt2Server._align_pack of the same rows, a
+    pack at a time, on CPU aligners. Returns the request's seconds."""
+    from bowtie2_server_tpu_torch.server.bt2srv import Bt2Server
+    from torch_serving import raw_request, tab6_line
+    names = [n.split()[0] if n.split() else n for n in srv.idx.ref_names]
+    t0 = time.time()
+    _, body = raw_request(port, [tab6_line(r) for r in rows])
+    dt = time.time() - t0
+    want = b"".join(Bt2Server._align_pack(
+        cpu_worker, rows[k : k + srv.batch_size], names)
+        for k in range(0, len(rows), srv.batch_size))
+    want += b"@CO BT2SRV All Done\n"
+    got, exp = body.split(b"\n"), want.split(b"\n")
+    diff = sum(a != b for a, b in zip(got, exp)) + abs(len(got) - len(exp))
+    if diff:
+        raise RuntimeError(f"server, {label}: {diff} lines of the card's "
+                           f"response differ from the CPU _align_pack "
+                           f"({len(got)} and {len(exp)} lines)")
+    log(f"server CUDA vs CPU, {label}: {len(rows)} rows, {len(got)} "
+        f"response lines identical to _align_pack on CPU aligners")
+    return dt
+
+
+def phase_server(base, contigs, pbase, chroms):
+    """Phase SRV: the port's BT2SRV server on the card, one on phase 4's
+    genome and one on phase PE's, each with the JAX server's pack size
+    (FLUSH_READS) on an event loop of its own thread; its packs run on the
+    server's worker thread. A raw request with fixed names to each is held
+    line by line against _align_pack on CPU aligners; then concurrent port
+    clients load each server. Returns the paths line's "server" entry."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_serving import serving
+    from bowtie2_server_tpu_torch.align.paired import PairedAligner
+    from bowtie2_server_tpu_torch.ops import kernels
+    from bowtie2_server_tpu_torch.server.bt2srv import FLUSH_READS, Bt2Server
+    out = {}
+    t_phase = time.time()
+    # the unpaired server: exactness on reads of 18-100 bp (packs with the
+    # fast and the general shape), then the main path's 100 bp reads
+    srv = Bt2Server(str(base), device="cuda")
+    try:
+        if srv.batch_size != FLUSH_READS:
+            raise RuntimeError(f"server packs of {srv.batch_size}, not "
+                               f"the JAX server's {FLUSH_READS}")
+        with serving(srv) as port:
+            names, seqs, quals = make_mixed_reads(61, contigs, SRV_EXACT,
+                                                  lo=18, hi=100)
+            rows = [(n, s, q, None, None, None)
+                    for n, s, q in zip(names, seqs, quals)]
+            pal = PairedAligner(srv.idx, device="cpu")
+            kernels.reset_launches()
+            first = srv_exact(srv, port, rows, (pal.up, pal),
+                              f"{SRV_EXACT} reads of 18-100 bp")
+            loads, origins = [], []
+            for c in range(SRV_CLIENTS):
+                names, seqs, quals, (cid, st, fw) = make_reads(
+                    70 + c, contigs, SRV_READS)
+                names = [f"c{c}r{i}" for i in range(SRV_READS)]
+                loads.append(list(zip(names, seqs, quals)))
+                origins.append(dict(zip(names, zip(cid, st, fw))))
+            timers = srv_timers(srv)
+            lines, wall = srv_clients(port, loads)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        srv.close()
+    ctg = [f"ctg{i}" for i in range(len(contigs))]
+    frac = min(srv_placement(ln, o, ctg) for ln, o in zip(lines, origins))
+    rps = SRV_CLIENTS * SRV_READS / wall
+    log(f"server (unpaired, {SRV_CLIENTS} concurrent clients x {SRV_READS} "
+        f"reads of {READ_LEN} bp, packs of {FLUSH_READS}): {rps:.1f} reads/s "
+        f"({wall:.2f} s from the first send to the last All Done, host "
+        f"clock); first request {first:.3f} s; every read answered once; "
+        f"at planted origin and strand, the lowest client {frac:.4f}; "
+        f"kernel launches over the phase {launches}")
+    if frac < SRV_ORIGIN_MIN:
+        raise RuntimeError(f"server origin fraction {frac:.4f} < "
+                           f"{SRV_ORIGIN_MIN}")
+    if launches["sw_banded"] == 0:
+        raise RuntimeError("the unpaired server never launched sw_banded")
+    out.update(reads_per_s=rps, origin=frac, first_request_s=first,
+               launches=launches,
+               host=srv_breakdown("unpaired", timers, wall))
+    # the paired server: exactness on pairs, then paired clients
+    srv = Bt2Server(str(pbase), device="cuda")
+    try:
+        with serving(srv) as port:
+            names, s1, s2, quals, _ = make_pairs(62, chroms, SRV_EXACT_PAIRS)
+            rows = [(n + "/1", a, q, n + "/2", b, q)
+                    for n, a, b, q in zip(names, s1, s2, quals)]
+            pal = PairedAligner(srv.idx, device="cpu")
+            kernels.reset_launches()
+            pfirst = srv_exact(srv, port, rows, (pal.up, pal),
+                               f"{SRV_EXACT_PAIRS} pairs")
+            loads, origins = [], []
+            for c in range(SRV_PAIR_CLIENTS):
+                names, s1, s2, quals, (ci, st1, st2) = make_pairs(
+                    80 + c, chroms, SRV_PAIRS)
+                names = [f"c{c}p{i}" for i in range(SRV_PAIRS)]
+                loads.append(list(zip(names, s1, quals, names, s2, quals)))
+                origins.append(dict(zip(names, zip(ci, st1, st2))))
+            timers = srv_timers(srv)
+            lines, wall = srv_clients(port, loads)
+            torch.cuda.synchronize()
+            plaunches = dict(kernels.LAUNCHES)
+    finally:
+        srv.close()
+    pfrac = min(srv_pair_placement(ln, o, [f"ctg{i}"
+                                           for i in range(len(chroms))])
+                for ln, o in zip(lines, origins))
+    pps = SRV_PAIR_CLIENTS * SRV_PAIRS / wall
+    log(f"server (paired, {SRV_PAIR_CLIENTS} concurrent clients x "
+        f"{SRV_PAIRS} pairs of {PAIR_LEN} bp mates): {pps:.1f} pairs/s "
+        f"({wall:.2f} s, host clock); first request {pfirst:.3f} s; every "
+        f"pair answered with two records; both mates at planted origin and "
+        f"strand, the lowest client {pfrac:.4f}; kernel launches over the "
+        f"phase {plaunches}")
+    if pfrac < SRV_PAIR_ORIGIN_MIN:
+        raise RuntimeError(f"server pair origin fraction {pfrac:.4f} < "
+                           f"{SRV_PAIR_ORIGIN_MIN}")
+    for name in ("sw_banded", "sw"):
+        if plaunches[name] == 0:
+            raise RuntimeError(f"the paired server never launched {name}")
+    out.update(pairs_per_s=pps, pair_origin=pfrac,
+               first_request_paired_s=pfirst, paired_launches=plaunches,
+               paired_host=srv_breakdown("paired", timers, wall))
+    log(f"phase SRV in {time.time() - t_phase:.1f} s on {card_line()}")
+    return out
 
 
 @contextlib.contextmanager
@@ -1626,6 +1900,7 @@ def main(argv=None):
         times["fm_walk"]["uint32"]["max_abs_err"])
     del big_cap
     pe_launches, pe_res = phase_paired(pidx, chroms)
+    srv_res = phase_server(base, contigs, pbase, chroms)
     small_sam = phase_parity(idx, contigs)
     phase_parity_short(idx, contigs)
     phase_parity_host()
@@ -1651,7 +1926,7 @@ def main(argv=None):
     log(f"launches on the paired path: {pe_launches}")
     log(json.dumps({"paths": {"unpaired": main_res, "paired": pe_res,
                               "short": sr_res, "n1": n1_res,
-                              "big": big_res}}))
+                              "big": big_res, "server": srv_res}}))
     # no PyTorch call computes any of these functions (a DP, the probe's
     # chain, an FM walk, a walk-left): library_ms is null
     kern = [dict(name=name, route="cuda",

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel equals its plain torch version on
-the same CUDA tensors, and UnpairedAligner and PairedAligner on 'cuda'
-write the same SAM as on 'cpu'. Every test here needs a CUDA device and
+the same CUDA tensors, UnpairedAligner and PairedAligner on 'cuda' write
+the same SAM as on 'cpu', and Bt2Server(device='cuda') answers a request
+as the CPU server does. Every test here needs a CUDA device and
 skips without one (the big-index cases force the big layout on small
 genomes); none imports JAX, so on a machine with the card (and no
 JAX) run them with
@@ -421,3 +422,47 @@ def test_host_path_cuda_equals_cpu(case, cuda_device):
     assert kernels.LAUNCHES["sw_banded"] >= 1
     if khits > 1:
         assert sum(ln.startswith("h0\t") for ln in sams["cpu"]) == 40
+
+
+def test_server_cuda_equals_cpu(cuda_device, tmp_path):
+    """One raw tab6 request with fixed names (reads of 18-100 bp, so packs
+    take the fast and the general shape, and pairs whose every 10th mate 2
+    only mate rescue finds) to Bt2Server(device='cuda'): the same response
+    as the CPU server's, with the banded and the rect kernel launched from
+    the server's worker thread."""
+    from bowtie2_server_tpu_torch.server.bt2srv import Bt2Server
+    from bowtie2_server_tpu_torch.utils import dna
+    from torch_serving import raw_request, serving
+    idx, names, seqs, _ = _workload(n=600)
+    idx.save(tmp_path / "genome")
+    rng = np.random.default_rng(8)
+    lines = []
+    for n, s in zip(names, seqs):
+        s = s[: int(rng.integers(18, 101))]
+        lines.append(n.encode() + b"\t" + s + b"\t" + b"I" * len(s))
+    chrom = idx.joined[: idx.ref_lens[0]]
+    for p in range(200):
+        st = int(rng.integers(0, len(chrom) - 500))
+        end = st + int(rng.integers(200, 400))
+        m1 = chrom[st : st + 100].copy()
+        m2 = (3 - chrom[end - 100 : end])[::-1].copy()
+        if p % 10 == 0:
+            m2[np.arange(p % 16, 100, 16)] ^= 1
+        lines.append(b"\t".join([
+            b"q%d/1" % p, dna.decode(m1).encode(), b"I" * 100,
+            b"q%d/2" % p, dna.decode(m2).encode(), b"I" * 100]))
+    rng.shuffle(lines)
+    bodies = {}
+    for dev in ("cpu", "cuda"):
+        srv = Bt2Server(str(tmp_path / "genome"), batch_size=512, device=dev)
+        try:
+            with serving(srv) as port:
+                kernels.reset_launches()
+                _, bodies[dev] = raw_request(port, lines)
+                launches = dict(kernels.LAUNCHES)
+        finally:
+            srv.close()
+    assert bodies["cuda"] == bodies["cpu"]
+    assert bodies["cuda"].endswith(b"@CO BT2SRV All Done\n")
+    assert bodies["cuda"].count(b"@CO END READ\t") == len(lines)
+    assert launches["sw_banded"] >= 2 and launches["sw"] >= 1

@@ -52,3 +52,11 @@ def test_no_jax_import_in_source(path):
             root = n.split(".")[0]
             assert root not in ("jax", "jaxlib", "bowtie2_server_tpu"), \
                 f"{path.name}:{node.lineno} imports {n}"
+
+
+def test_walks_the_serving_modules():
+    """The serving path's modules are among those imported with jax
+    blocked and checked for imports above."""
+    for m in ("server", "server.bt2srv", "server.client", "server.dispatch",
+              "index.bt2_reader", "index.bt2_writer", "__main__"):
+        assert f"bowtie2_server_tpu_torch.{m}" in MODULES, m
