@@ -23,11 +23,18 @@
 // were before big indexes), unsigned for big ones (GRCh38-scale, rows up to
 // 2^32 - 1), which the wrappers pick from DeviceFm.big. With R = unsigned
 // every row value, the block (row >> 6), the comparisons (top >= bot, the
-// $-hole test) and the side counts are unsigned, as the JAX package's
-// uint32 rows are; the tensors carry the same 32 bits either way.
+// $-hole test) and the side counts are unsigned, as
+// the JAX package's uint32 rows are; the tensors carry the same 32 bits
+// either way.
+//
+// Sides. A block's side is 32 bytes (its four counts, then its 64 bases
+// packed in four words), the sides contiguous, 32-byte aligned, in a small
+// and a big index alike; a big index keeps its mark rows in an array of
+// their own (fm_resolve). The card reads HBM 64 bytes at a time, so a side
+// read brings the next block's side, which a step often needs.
 //
 // Modes (a lane's characters come from its pattern row, right to left from
-// its start position):
+// its start position, which lies inside the row):
 //   SEARCH: start from (0, n), or with use_ftab from the ftab range of the
 //     rightmost FTAB_CHARS characters when they are all 0..3; step until the
 //     position falls below 0 or the range empties; an empty result is (0, 0).
@@ -39,22 +46,41 @@
 //     a lane with pos < 0 or an empty range is frozen as it is; an N makes
 //     (0, 0) and moves pos once more; at most n_steps steps.
 //
-// What bounds it on this card: the dependent chain. A step is two 32-byte
-// side fetches (two 16-byte loads each, independent of each other) whose
-// addresses depend on the previous step's range, then ~40 integer
-// operations; the sides of a 4 Mbp direction (~2 MB) stay in the 50 MB L2.
-// So a lane's time is steps x (L2 latency + the step's arithmetic), and the
-// card is filled by lanes: 65536 lanes make 2048 warps, ~16 an SM. Bytes
-// (64 a lane-step from the sides, the pattern byte, 8 recorded bytes) and
-// operations are far below the card's rates at these lane counts.
+// What bounds fm_walk on this card (NVIDIA H100 80GB HBM3, 700 W;
+// scripts/bench_fm.py at the big batch's shapes). With the sides in HBM (a
+// direction of a genome past ~64 Mbp: 2^29 bp has 256 MB of sides, GRCh38
+// 1.5 GB) nearly every step past the first ~10 characters reads a block no
+// other lane read, and the walk runs close to the rate at which the card
+// serves random 32-byte reads (the gather probe: ~2.5-2.7e10 a second):
+// about 0.7 of that rate for the recorded pass at 2^29 bp. A step
+// whose two ends share a block reads it once from DRAM even with four
+// loads, since L1 merges the second pair. With the sides in L2 (a
+// direction of the 4 Mbp genome: 2 MB) the first design's recorded pass
+// took ~1.7x its chain floor (the longest lane's 100 steps, one after
+// another, at the time of one dependent step), at ~0.3 of its bound: its
+// ~16 warps an SM each wait on a side load and then execute ~160
+// instructions a step, and the step's byte load of the pattern sat on the
+// chain.
 //
-// What the design does about it: nothing is shared between lanes, so one
-// thread a lane and no synchronisation; the side is read with two 16-byte
-// __ldg loads; the counts are selected in registers; a finished lane stops
-// fetching (SEARCH and CONT leave the loop; RECORD only writes); the record
-// is laid out [step, lane] so a warp's writes are coalesced. It is a simple
-// kernel: no tuning of occupancy or of the pattern reads (one byte a step,
-// uncoalesced) yet.
+// What the design does about it: one thread a lane (nothing is shared, no
+// synchronisation); contiguous sides (a big index's blocks laid out as
+// 64-byte records of side and mark row, which the walk-left wants, made
+// the recorded pass 2-6% and the seed search 10% slower in HBM, with or
+// without the next block's words in the record's spare 16 bytes, which a
+// range ending in the next block would read); a lane's next character is
+// loaded one step ahead, off the chain; occ counts the nonmatching bases
+// of the whole words below the row's word by prefix popcounts and masks
+// only that word (`lf_walk`);
+// 32 registers a thread (`__launch_bounds__(256, 8)`), so that the card
+// holds 2048 threads an SM and keeps as many random reads in flight as the
+// first design did (with 40 registers the seed search in HBM was slower);
+// a finished lane stops fetching (SEARCH and CONT leave the loop; RECORD
+// only writes); the record is laid out [step, lane] so a warp's writes are
+// coalesced. Tried on the card and dropped: one side fetch when both ends
+// share a block (no DRAM read saved, and its branch was slower in HBM),
+// the pattern read in 16-byte chunks (its two loads a lane slowed the
+// short seed walks). Two lanes a thread would not shorten a chain: where
+// lanes are few the time is the longest chain's steps x the step latency.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,6 +88,7 @@ namespace {
 
 constexpr int FTAB_CHARS = 10;
 constexpr int SEARCH = 0, RECORD = 1, CONT = 2;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 template <typename R>
 struct Fm {
@@ -102,7 +129,7 @@ __device__ __forceinline__ R occ(const Fm<R>& fm, int c, R row) {
   return base + (R)(rem - nm) - corr;
 }
 
-// one LF step on a valid character (0..3) and a nonempty range
+// one LF step on a valid character (0..3) and a nonempty range (fm_lf_step)
 template <typename R>
 __device__ __forceinline__ void lf(const Fm<R>& fm, int c, R& top, R& bot) {
   const R base = pick(c, fm.cnt0, fm.cnt1, fm.cnt2, fm.cnt3);
@@ -112,8 +139,53 @@ __device__ __forceinline__ void lf(const Fm<R>& fm, int c, R& top, R& bot) {
   bot = base + b;
 }
 
+// the nonmatch bits of c (pat = c * 0x55555555) in a word of packed bases
+__device__ __forceinline__ unsigned nm_bits(unsigned w, unsigned pat) {
+  const unsigned x = w ^ pat;
+  return (x | (x >> 1)) & 0x55555555u;
+}
+
+__device__ __forceinline__ uint4 nm_side(const uint4& wd, unsigned pat) {
+  return make_uint4(nm_bits(wd.x, pat), nm_bits(wd.y, pat),
+                    nm_bits(wd.z, pat), nm_bits(wd.w, pat));
+}
+
+// set nonmatch bits among the first rem (0..63) bases: the whole words
+// below the row's word, then that word masked
+__device__ __forceinline__ int nm_prefix(const uint4& nm, int rem) {
+  const int k = rem >> 4;
+  const int p1 = __popc(nm.x), p2 = p1 + __popc(nm.y);
+  const int p3 = p2 + __popc(nm.z);
+  const int full = k == 0 ? 0 : k == 1 ? p1 : k == 2 ? p2 : p3;
+  const unsigned part = k == 0 ? nm.x : k == 1 ? nm.y : k == 2 ? nm.z : nm.w;
+  return full + __popc(part & ((1u << (2 * (rem & 15))) - 1u));
+}
+
+// fm_walk's LF step: the same counts as lf, by prefix popcounts
 template <typename R>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ void lf_walk(const Fm<R>& fm, int c, R& top,
+                                        R& bot) {
+  const R bt = top >> 6, bb = bot >> 6;
+  const uint4* st = fm.side + 2 * (size_t)bt;
+  const uint4 ckt = __ldg(st);
+  const uint4 wdt = __ldg(st + 1);
+  const unsigned pat = (unsigned)c * 0x55555555u;
+  const uint4 nmt = nm_side(wdt, pat);
+  const uint4* sb = fm.side + 2 * (size_t)bb;
+  const uint4 ckb = __ldg(sb);
+  const uint4 nmb = nm_side(__ldg(sb + 1), pat);
+  const int rt = (int)(top & 63), rb = (int)(bot & 63);
+  const R base = pick(c, fm.cnt0, fm.cnt1, fm.cnt2, fm.cnt3);
+  const R ct = (c == 0 && fm.primary >= (bt << 6) && fm.primary < top);
+  const R cb = (c == 0 && fm.primary >= (bb << 6) && fm.primary < bot);
+  top = base + pick(c, (R)ckt.x, (R)ckt.y, (R)ckt.z, (R)ckt.w)
+        + (R)(rt - nm_prefix(nmt, rt)) - ct;
+  bot = base + pick(c, (R)ckb.x, (R)ckb.y, (R)ckb.z, (R)ckb.w)
+        + (R)(rb - nm_prefix(nmb, rb)) - cb;
+}
+
+template <typename R>
+__global__ void __launch_bounds__(256, 8)
 fm_walk_kernel(Fm<R> fm, const R* __restrict__ ftab_top,
                const R* __restrict__ ftab_bot,
                const uint8_t* __restrict__ pat, int pat_stride, int pat_rows,
@@ -132,19 +204,24 @@ fm_walk_kernel(Fm<R> fm, const R* __restrict__ ftab_top,
   int pos = start_pos[lane];
   R top = top_in != nullptr ? top_in[lane] : (R)0;
   R bot = bot_in != nullptr ? bot_in[lane] : fm.n;
+  // the character at pos, loaded one step before it is used
+  int next = pos >= 0 ? __ldg(p + pos) : 0;
   if (use_ftab && pos >= FTAB_CHARS - 1) {
-    // the rightmost FTAB_CHARS characters, big-endian in text order
+    // the rightmost FTAB_CHARS characters, big-endian in text order: the
+    // character k left of pos weighs 4^k
     int key = 0;
     bool ok = true;
-    for (int i = FTAB_CHARS - 1; i >= 0; --i) {
-      const int c = p[pos - i];
+#pragma unroll
+    for (int k = 0; k < FTAB_CHARS; ++k) {
+      const int c = __ldg(p + pos - k);
       ok &= c <= 3;
-      key = key * 4 + (c & 3);
+      key |= (c & 3) << (2 * k);
     }
     if (ok) {
       top = __ldg(ftab_top + key);
       bot = __ldg(ftab_bot + key);
       pos -= FTAB_CHARS;
+      next = pos >= 0 ? __ldg(p + pos) : 0;
     }
   }
   if (mode == RECORD) {
@@ -152,13 +229,14 @@ fm_walk_kernel(Fm<R> fm, const R* __restrict__ ftab_top,
     rec_bot[lane] = bot;
     for (int s = 0; s < n_steps; ++s) {
       if (pos >= 0) {
-        const int c = p[pos];
+        const int c = next;
+        --pos;
+        next = pos >= 0 ? __ldg(p + pos) : 0;
         if (c > 3 || top >= bot) {
           top = bot = 0;
         } else {
-          lf(fm, c, top, bot);
+          lf_walk(fm, c, top, bot);
         }
-        --pos;
       }
       rec_top[(size_t)(s + 1) * P + lane] = top;
       rec_bot[(size_t)(s + 1) * P + lane] = bot;
@@ -166,13 +244,14 @@ fm_walk_kernel(Fm<R> fm, const R* __restrict__ ftab_top,
     return;
   }
   for (int s = 0; s < n_steps && pos >= 0 && top < bot; ++s) {
-    const int c = p[pos];
+    const int c = next;
+    --pos;
+    next = pos >= 0 ? __ldg(p + pos) : 0;
     if (c > 3) {
       top = bot = 0;
     } else {
-      lf(fm, c, top, bot);
+      lf_walk(fm, c, top, bot);
     }
-    --pos;
   }
   if (mode == SEARCH && top >= bot) top = bot = 0;
   top_out[lane] = top;
@@ -264,25 +343,33 @@ void launch_lf_step(const int* side, const int* c_in, const int* top_in,
 // valid == 0 keep the JAX loop's initial offset, 0. The rank is clamped
 // to the sample array as in the JAX loop. Arithmetic is uint32 as there.
 //
-// What bounds it: the dependent chain. A trip is one 16-byte mark load and
-// one 32-byte side load (two 16-byte loads), all three addressed by the
-// row and issued together, then ~30 integer operations to test the bit
-// or take the LF step; the next trip's loads wait on this one's row. A
-// chain is at most 2^off_rate - 1 = 15 steps (0 to 15, uniform over the
-// sampled values, 7.5 on average). On the 4 Mbp genome the sides (2 MB)
-// and marks (1 MB) of a direction stay in the 50 MB L2, so a trip costs an
-// L2 round trip; on a GRCh38-scale index (1.5 GB of sides and 0.76 GB of
-// marks a direction) nearly every trip misses L2 and waits on HBM. Bytes
-// (48 a trip, the sample, 9 a lane) and operations are far below the
-// card's rates at a batch's lane counts (~10^5), so the time is the
-// longest chain's trips times the latency, with the card filled by lanes.
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; scripts/bench_fm.py). A
+// trip is one 16-byte mark load and one 32-byte side load (two 16-byte
+// loads), all three addressed by the row and issued together, then ~30
+// integer operations to test the bit or take the LF step; the next trip's
+// loads wait on this one's row. A chain is at most 2^off_rate - 1 = 15
+// steps (7.5 on average), 16 trips at ~0.5 us: far below the measured
+// times, so the bound is a rate. A big index is built only past 2^31 -
+// 2^23 bp (GRCh38: 1.5 GB of sides and 0.76 GB of marks a direction), so
+// its tables lie in HBM and nearly every trip reads a mark row and a side
+// from two random DRAM pages; the card serves random 32- and 64-byte reads
+// at about the same rate (the gather probe: ~2.6e10 and ~2.5e10 a second),
+// and at 2^29 bp the kernel runs close to that rate for two reads a
+// block. With the tables in L2 (only where tests and chip_smoke force the
+// big layout on a small genome) a trip is an L2 round trip and the time
+// is the longest chain's trips times that latency.
 //
 // What the design does: one thread a row, no sharing and no
 // synchronisation; the mark and side loads of a trip are issued before
 // either is used, so a trip pays one latency rather than two; a lane
 // leaves as soon as it is marked (the JAX loop runs every trip for every
-// lane). It is a simple kernel: a warp's lanes finish at different trips
-// (up to 15 apart) and nothing regroups them yet.
+// lane). Tried on the card and dropped: each block's side and mark row in
+// one 64-byte record with two threads a row (0.72 of this kernel's time
+// in HBM, 1.5x in L2; the same two-thread kernel on these separate arrays
+// 1.1x), because the walks then read the records too (one table layout)
+// and lost as much as the walk-left gained; regrouping a warp's lanes as
+// they finish (a batch's ~2 x 10^5 rows fill the card at most twice, so a
+// regrouped warp would find few rows to take).
 __global__ void __launch_bounds__(256)
 fm_resolve_kernel(const uint4* __restrict__ side,
                   const uint4* __restrict__ mark,
@@ -336,12 +423,13 @@ fm_resolve_kernel(const uint4* __restrict__ side,
 }  // namespace
 
 // side: [n_blocks + 1, 8] int32 (32-byte aligned rows); pat: [pat_rows,
-// pat_stride] uint8 codes; per-lane int32 arrays of P entries (rowsel,
-// top_in and bot_in may be null, ftab_* are read only with use_ftab); the
-// outputs of the mode: top_out, bot_out, pos_out [P] (SEARCH, CONT) or
-// rec_top, rec_bot [n_steps + 1, P] (RECORD). The index's scalars are the
-// int32 bit patterns of its rows; with row_u32 the rows (and the ranges in
-// and out) are read as uint32. Returns cudaGetLastError().
+// pat_stride] uint8 codes, every start position inside its row; per-lane
+// int32 arrays of P entries (rowsel, top_in and bot_in may be null,
+// ftab_* are read only with use_ftab); the outputs of the mode: top_out,
+// bot_out, pos_out [P] (SEARCH, CONT) or rec_top, rec_bot [n_steps + 1, P]
+// (RECORD). The index's scalars are the int32 bit patterns of its rows;
+// with row_u32 the rows (and the ranges in and out) are read as uint32.
+// Returns cudaGetLastError().
 extern "C" int bt2_fm_walk(const int* side, const int* ftab_top,
                            const int* ftab_bot, const uint8_t* pat,
                            const int* rowsel, const int* start_pos,

@@ -3,6 +3,9 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py [--paths]
 
+(--paths: only phases 1, 2, 4, SR, BIG and PE, for an A/B of two
+checkouts on one card.)
+
 It imports nothing of JAX. Phases, in order; any failure exits non-zero and
 prints no result line:
   1. environment: torch and CUDA versions, the card's name and power limit;
@@ -101,6 +104,25 @@ prints no result line:
      dependent-chain floor (scripts/bench_fm.py resolve_bound, the longest
      lane's steps x phase FM's dependent step), and the uint32 fm_walk
      against its plain version on the captured recorded pass;
+  HBM. the FM kernels with their tables in HBM, far past the 50 MB L2: the
+     gather probe (scripts/bench_fm.py gather_rates: random 32- and
+     64-byte reads/s from a 2 GB table), then two directions laid out on
+     the card by the layout's own rules (bench_fm.random_fm: a random BWT
+     with its $ row, block counts, C array and ftab; marks at density
+     1/16 with random samples), one of 2^30 rows for the int instantiation
+     (512 MB of sides) and one of 2^31 + 2^20 rows for the uint32 one
+     (1.07 GB of sides and 0.54 GB of marks, half its lanes' rows past
+     2^31); on each, patterns read off the table by LF walks
+     (bench_fm.walk_patterns, so every walk runs its full length) drive fm_walk's recorded pass
+     (65536 lanes x 128), its seed search with and without the ftab
+     (262144 x 22, some short, 1% with an N), its continuation (131072
+     lanes from the record's ranges) and fm_lf_step (2^20 lanes), and on
+     the uint32 one fm_resolve (196608 rows, a tenth invalid; chains that
+     meet no mark within 16 trips among them), each bit-exact against its
+     plain version and timed against its HBM bound (each distinct block
+     one random read of its side at the probe's rate, two for the
+     walk-left: side and mark row) and its chain floor (the
+     longest lane's steps x one dependent step on the same table);
   5. CUDA against CPU, each through the port on both devices with identical
      output: one batch of 2048 reads (decoded batch results and SAM
      lines); 2048 reads of 18-60 bp and 2048 under -N 1 (the same); the
@@ -192,6 +214,15 @@ BIG_BATCHES = 4     # measured batches, after one warm-up batch
 # leaves room for reads whose substitutions make another placement score
 # as well.
 ORIGIN_MIN_BIG = 0.99
+# phase HBM: the FM kernels on tables far past the 50 MB L2, built on the
+# card (scripts/bench_fm.py random_fm): an int-row direction of 2^30 rows
+# (512 MB of sides) and a uint32 one of 2^31 + 2^20 rows (1.07 GB of sides
+# and 0.54 GB of marks, rows past 2^31 walked); the big batch's shapes
+HBM_TABLES = ((1 << 30, False), ((1 << 31) + (1 << 20), True))
+HBM_RECORD = (65536, 128)     # lanes x steps of the recorded pass
+HBM_SEEDS = (262144, 22)      # lanes x characters of the seed searches
+HBM_CONT = 131072             # continuation lanes
+HBM_RESOLVE = 196608          # walk-left lanes
 # phase SRV: the BT2SRV server on the card, driven through its socket.
 # Exactness: one raw tab6 request with fixed names to each server (reads of
 # 18-100 bp; pairs), held line by line against _align_pack on CPU
@@ -424,7 +455,8 @@ def hold(label: str, arg, kernel, plain, symbol: str):
     torch.cuda.synchronize()
     if isinstance(got, torch.Tensor):
         got, want = (got,), (want,)
-    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(got, want))
     dev = torch.device("cuda")
     ms = device_ms(lambda: kernel(arg), dev, symbol, reps=5)
     ems = time_ms(lambda: kernel(arg), dev, reps=5)
@@ -1541,6 +1573,172 @@ def phase_big_kernels(idx, big_cap, ceiling, lat):
     return res, walk
 
 
+def phase_hbm(ceiling):
+    """fm_walk (every mode, both row types) and fm_resolve against their
+    plain torch versions on tables far past the 50 MB L2, laid out on the
+    card by the layout's own rules (scripts/bench_fm.py random_fm), with
+    patterns read off them by LF walks (walk_patterns), so that every
+    walk runs its full length; each timed against its HBM bound (the
+    gather probe's random-read rates) and its chain floor at the HBM step
+    latency. Returns the kernels line's entries {kernel: {shape: ...}}."""
+    import torch
+    from bowtie2_server_tpu_torch.ops import fm as dfm
+    from bowtie2_server_tpu_torch.scripts import bench_fm
+    t_phase = time.time()
+    rates = bench_fm.gather_rates(torch.device("cuda"))
+    log(f"gather probe (2 GB table): {rates[32]:.4g} random 32-byte and "
+        f"{rates[64]:.4g} random 64-byte reads/s ({rates[32] * 32 / 1e12:.3f}"
+        f" and {rates[64] * 64 / 1e12:.3f} TB/s)")
+    out = {"fm_walk": {"gather_reads_per_s": rates},
+           "fm_resolve": {"gather_reads_per_s": rates}}
+    err = 0
+    for (n, big), seed in zip(HBM_TABLES, (61, 62)):
+        tag = "uint32" if big else "int32"
+        t0 = time.time()
+        fm = bench_fm.random_fm(n, "cuda", seed=seed, big=big)
+        torch.cuda.synchronize()
+        log(f"HBM table ({tag} rows): {n} rows, {bench_fm.table_bytes(fm) / 1e9:.3f} "
+            f"GB of sides{' and marks' if big else ''}, built on the card in "
+            f"{time.time() - t0:.1f} s")
+        rng = np.random.default_rng(seed)
+        cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+        def rows_of(k):
+            # random rows; of a big table half past 2^31
+            r = rng.integers(0, n, k)
+            if big:
+                r[: k // 2] = rng.integers(min(1 << 31, n // 2), n, k // 2)
+            return cuda(r.astype(np.int64))
+
+        lat = bench_fm.step_latency_ms(
+            fm, pat=bench_fm.walk_patterns(fm, rows_of(32), 2048))
+        log(f"  one dependent LF step on it: {lat * 1e3:.3f} us")
+        P, L = HBM_RECORD
+        pat = bench_fm.walk_patterns(fm, rows_of(P), L)
+        lens_h = rng.integers(L // 2, L + 1, P)
+        lens_h[:6] = (0, 1, 9, 10, 11, L)
+        lens = cuda(lens_h.astype(np.int32))
+        shapes = {}
+
+        def add(shape, run, per_lane, blocks, mode, n_steps, pat_bytes,
+                n_ftab=0):
+            steps, lanes = int(per_lane.sum()), int(per_lane.shape[0])
+            r = summary([run], bench_fm.walk_bound_hbm(
+                blocks, steps, lanes, n_steps, mode, ceiling, rates[32],
+                pat_bytes, ftab_lanes=n_ftab))
+            r.update(lanes=lanes, lf_steps=steps, dram_blocks=blocks,
+                     chain_floor_ms=int(per_lane.max()) * lat)
+            shapes[shape] = r
+            log(f"  {shape}: {steps} LF steps reading {blocks} distinct "
+                f"blocks in {lanes} lanes; HBM bound "
+                f"{r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), {r['frac_of_bound']:.4f} of it; chain "
+                f"floor {r['chain_floor_ms']:.4f} ms")
+
+        run = hold(f"fm_walk {tag} record (HBM): {P} lanes x {L} steps", None,
+                   lambda _: dfm.backward_search_record_body(fm, pat, lens),
+                   lambda _: dfm.backward_search_record_body_torch(fm, pat,
+                                                                   lens),
+                   "fm_walk_kernel")
+        rec = dfm.backward_search_record_body(fm, pat, lens)
+        add("record", run, bench_fm.walk_steps(pat, lens,
+                                               *map(dfm.widen, rec)),
+            bench_fm.walk_blocks(pat, lens, *rec), "record", L, pat.numel())
+        # seeds: 22 characters, some shorter than the ftab's 10, 1% with
+        # an N; with and without the ftab jump
+        Ps, Ls = HBM_SEEDS
+        spat = bench_fm.walk_patterns(fm, rows_of(Ps), Ls)
+        nmask = rng.random(Ps) < 0.01
+        spat[cuda(np.flatnonzero(nmask)),
+             cuda(rng.integers(0, Ls, int(nmask.sum())))] = 4
+        slens = cuda(np.where(rng.random(Ps) < 0.05, rng.integers(0, 10, Ps),
+                              Ls).astype(np.int32))
+        srec = dfm.backward_search_record_body(fm, spat, slens)
+        for use_ftab in (True, False):
+            run = hold(f"fm_walk {tag} search, ftab {use_ftab} (HBM): {Ps} "
+                       f"lanes x {Ls}", None,
+                       lambda _: dfm.backward_search_body(fm, spat, slens,
+                                                          use_ftab),
+                       lambda _: dfm.backward_search_body_torch(
+                           fm, spat, slens, use_ftab), "fm_walk_kernel")
+            add(f"search_ftab_{use_ftab}".lower(), run, bench_fm.walk_steps(
+                spat, slens, *map(dfm.widen, srec), use_ftab=use_ftab),
+                bench_fm.walk_blocks(spat, slens, *srec, use_ftab=use_ftab),
+                "search", Ls, spat.numel(),
+                int(bench_fm.ftab_lanes(spat, slens).sum()) if use_ftab
+                else 0)
+        # continuations from the recorded pass's ranges part-way along
+        Pc = HBM_CONT
+        cb_h = rng.integers(0, P, Pc)
+        pos_h = (rng.random(Pc) * np.maximum(lens_h[cb_h], 1)).astype(
+            np.int64) - 1
+        cb, pos = cuda(cb_h.astype(np.int32)), cuda(pos_h.astype(np.int32))
+        at = (lens.to(torch.int64)[cb.long()] - 1 - pos.long()).clamp(0, L)
+        top, bot = rec[0][at, cb.long()], rec[1][at, cb.long()]
+        run = hold(f"fm_walk {tag} continuation (HBM): {Pc} lanes x {L}",
+                   None, lambda _: dfm.one_mm_phase1_body(fm, pat, cb, pos,
+                                                          top, bot, L),
+                   lambda _: dfm.one_mm_phase1_body_torch(fm, pat, cb, pos,
+                                                          top, bot, L),
+                   "fm_walk_kernel")
+        add("continuation", run, *bench_fm.cont_work(fm, pat, cb, pos, top,
+                                                     bot, L),
+            "cont", L, pat.numel())
+        # one LF step (fm_lf_step, on the same tables) from the record's
+        # ranges, with N and pad characters among them
+        Pl = 1 << 20
+        li = cuda(rng.integers(0, P, Pl))
+        ls = cuda(rng.integers(0, L + 1, Pl))
+        lc = cuda(rng.integers(0, 6, Pl).astype(np.int32))
+        ltop, lbot = rec[0][ls, li], rec[1][ls, li]
+        run = hold(f"fm_lf_step {tag} (HBM): {Pl} lanes", None,
+                   lambda _: dfm.lf_step(fm, lc, ltop, lbot),
+                   lambda _: dfm.lf_step_torch(fm, lc, ltop, lbot),
+                   "fm_lf_step_kernel")
+        err = max(err, run[0])
+        out["fm_walk"][tag] = shapes
+        err = max([err] + [r["max_abs_err"] for r in shapes.values()])
+        del rec, srec, pat, spat
+        if big:
+            Pr = HBM_RESOLVE
+            r = rows_of(Pr)
+            r[:203] = cuda(np.concatenate([np.arange(200),
+                                           [fm.primary, 0, n - 1]]))
+            rows = dfm.narrow(r)
+            valid = cuda(rng.random(Pr) < 0.9)
+            run = hold(f"fm_resolve (HBM): {Pr} lanes "
+                       f"({int(valid.sum())} valid)", None,
+                       lambda _: dfm.resolve_rows_body(fm, rows, valid),
+                       lambda _: dfm.resolve_rows_body_torch(fm, rows,
+                                                             valid),
+                       "fm_resolve_kernel")
+            off, steps = dfm.walk_left_torch(fm, rows, valid)
+            steps = torch.where(valid, steps, 0)
+            nbl = bench_fm.resolve_blocks(fm, rows, valid)
+            res = summary([run], bench_fm.resolve_bound_hbm(
+                nbl, steps, valid, ceiling, rates[32]))
+            res.update(lanes=Pr, valid=int(valid.sum()), dram_blocks=nbl,
+                       lf_steps=int(steps.sum()), max_steps=int(steps.max()),
+                       exhausted=int((valid & (off == 0)).sum()),
+                       chain_floor_ms=int(steps.max()) * lat)
+            log(f"  fm_resolve: {res['lf_steps']} LF steps ({nbl} distinct "
+                f"blocks) in {res['valid']} valid lanes ({res['exhausted']} "
+                f"unmarked "
+                f"within 16 trips); HBM bound {res['bound_ms']:.4f} ms "
+                f"({res['bound_by']}), {res['frac_of_bound']:.4f} of it; "
+                f"chain floor {res['chain_floor_ms']:.4f} ms")
+            out["fm_resolve"]["uint32"] = res
+            err = max(err, res["max_abs_err"])
+        del fm
+        torch.cuda.empty_cache()
+    log(f"fm_walk, fm_lf_step and fm_resolve on the HBM tables: "
+        f"max_abs_err={err}; phase HBM in {time.time() - t_phase:.1f} s")
+    if err != 0:
+        raise RuntimeError(f"an FM kernel disagrees with its plain version "
+                           f"on the HBM tables (max_abs_err {err})")
+    return out
+
+
 def sam_lines(recs, ref_names):
     """SAM lines of a batch's records: a lazy record view or, from the host
     path and under -k/-a, a list (secondary records after their
@@ -1852,7 +2050,8 @@ def phase_cli_paired(pbase: Path, chroms, n=5000, device="cuda"):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--paths", action="store_true", help=(
-        "only phases 1, 2, 4 (end-to-end) and PE; the last line is their "
+        "only phases 1, 2, 4 (end-to-end), SR, BIG and PE; the last line "
+        "is their "
         "JSON. To compare two checkouts in turns on one card, run a copy "
         "of this script placed in the root of each"))
     paths_only = ap.parse_args(argv).paths
@@ -1879,9 +2078,12 @@ def main(argv=None):
         f"built in {time.time() - t0:.1f} s")
     if paths_only:
         _, main_res = phase_main(idx, contigs, local=False)
+        _, sr_res, _ = phase_short(idx, contigs)
+        _, big_res, _ = phase_big(idx, contigs)
         _, pe_res = phase_paired(pidx, chroms)
         log(card_line())
-        log(json.dumps({"paths": {"unpaired": main_res, "paired": pe_res},
+        log(json.dumps({"paths": {"unpaired": main_res, "short": sr_res,
+                                  "big": big_res, "paired": pe_res},
                         "package": str(ROOT)}))
         return
     times = phase_kernels(contigs)
@@ -1895,6 +2097,9 @@ def main(argv=None):
     big_launches, big_res, big_cap = phase_big(idx, contigs)
     times["fm_resolve"], times["fm_walk"]["uint32"] = phase_big_kernels(
         idx, big_cap, ceiling, times["fm_walk"]["step_latency_ms"])
+    hbm = phase_hbm(ceiling)
+    times["fm_walk"]["hbm"] = hbm["fm_walk"]
+    times["fm_resolve"]["hbm"] = hbm["fm_resolve"]
     times["fm_walk"]["max_abs_err"] = max(
         times["fm_walk"]["max_abs_err"],
         times["fm_walk"]["uint32"]["max_abs_err"])

@@ -114,3 +114,148 @@ def test_resolve_bound_counts():
     ops = (21 * bench_fm.OPS_RESOLVE_TEST + 18 * bench_fm.OPS_RESOLVE_STEP
            + 3 * bench_fm.OPS_RESOLVE_HIT)
     assert by == "operations" and ms == pytest.approx(ops / 1e6 * 1e3)
+
+
+def test_walk_blocks_count_distinct_blocks(tile):
+    """The distinct blocks a walk reads (both ends of every step that
+    fetches), from the recorded pass: at most two a step, at least the
+    blocks of one end; and on a hand-made record."""
+    fm, pat, lens = tile
+    rec = tfm.backward_search_record_body(fm, pat, lens)
+    steps = bench_fm.walk_steps(pat, lens, *rec)
+    assert 0 < bench_fm.walk_blocks(pat, lens, *rec) <= 2 * int(steps.sum())
+    # two lanes of three characters: lane 0 in one block, then two, then
+    # empty; lane 1 across blocks, then past its start
+    p = torch.tensor([[0, 1, 2], [3, 3, 3]], dtype=torch.uint8)
+    ln = torch.tensor([3, 2], dtype=torch.int32)
+    top = torch.tensor([[0, 0], [64, 10], [100, 0], [5, 0]])
+    bot = torch.tensor([[10, 200], [130, 300], [100, 0], [5, 0]])
+    assert bench_fm.walk_steps(p, ln, top, bot).tolist() == [2, 2]
+    # blocks 0 (twice), 1, 2, 3, 0 (again), 4: five distinct
+    assert bench_fm.walk_blocks(p, ln, top, bot) == 5
+
+
+def test_hbm_bounds_count_random_reads():
+    """The HBM forms charge each distinct block a walk reads a random
+    32-byte read, and each a walk-left reads two (its side and its mark
+    row), at the probe's rate, the rest of the bytes at the stream rate; a huge op
+    count turns them to operations."""
+    ms, by = bench_fm.walk_bound_hbm(1500, 1000, 10, 64, "record", 3e13,
+                                     rate32=1e10, pat_bytes=640)
+    rest = (640 + 10 * 4 + 65 * 10 * 8) / HBM_BYTES_PER_S * 1e3
+    assert by == "bytes" and ms == pytest.approx(1500 / 1e10 * 1e3 + rest)
+    _, by = bench_fm.walk_bound_hbm(1500, 10**9, 10, 64, "record", 1e6,
+                                    rate32=1e10, pat_bytes=640)
+    assert by == "operations"
+    steps = torch.tensor([0, 3, 15, 0])
+    valid = torch.tensor([True, True, True, False])
+    ms, by = bench_fm.resolve_bound_hbm(17, steps, valid, 3e13, rate32=1e9)
+    want = 2 * 17 / 1e9 * 1e3 + (3 * 4 + 4 * 9) / HBM_BYTES_PER_S * 1e3
+    assert by == "bytes" and ms == pytest.approx(want)
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["int", "big"])
+def test_random_fm_is_an_index_layout(big):
+    """random_fm's direction keeps the layout's rules: LF (C array plus the
+    block counts and the packed codes, the $ row uncounted) is a
+    permutation of the rows, the sentinel side holds the totals, the
+    marks' ranks count the bits before each block (the primary row
+    marked), there is a sample a mark, and the ftab is the plain search of
+    every 10-mer; its sides (and a big one's marks) are contiguous
+    arrays."""
+    n = (1 << 13) + 37
+    fm = bench_fm.random_fm(n, "cpu", seed=2, big=big)
+    assert fm.big == big and fm.n == n
+    rows = torch.arange(n)
+    c = bench_fm.bwt_codes(fm, rows)
+    lf = fm.cnt[c] + tfm.widen(tfm.occ_batch(fm, c, tfm.narrow(rows)))
+    lf[fm.primary] = 0
+    assert torch.equal(lf.sort().values, rows)
+    assert tfm.widen(fm.side[-1, :4]).tolist() == [
+        fm.cnt_host[1] - 1, fm.cnt_host[2] - fm.cnt_host[1],
+        fm.cnt_host[3] - fm.cnt_host[2], n - fm.cnt_host[3]]
+    if big:
+        mk = tfm.widen(fm.mark)
+        per = tfm._popc32(mk[:, 0]) + tfm._popc32(mk[:, 1])
+        assert torch.equal(mk[1:, 2], torch.cumsum(per, 0)[:-1])
+        assert fm.sa_samp.shape[0] == int(per.sum())
+        assert (int(mk[fm.primary >> 6, (fm.primary & 63) >> 5])
+                >> (fm.primary & 31)) & 1
+        assert 0.04 < int(per.sum()) / n < 0.09
+        assert fm.mark.shape == (fm.side.shape[0], 4)
+        assert fm.mark.is_contiguous()
+    assert fm.side.is_contiguous()
+    assert bench_fm.table_bytes(fm) == fm.side.shape[0] * (48 if big
+                                                          else 32)
+    keys = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 4 ** FTAB_CHARS, 500))
+    pat = torch.stack([(keys >> (2 * (FTAB_CHARS - 1 - i))) & 3
+                       for i in range(FTAB_CHARS)], 1).to(torch.uint8)
+    top, bot = tfm.backward_search_body(
+        fm, pat, torch.full((500,), FTAB_CHARS, dtype=torch.int32), False)
+    assert torch.equal(fm.ftab_top[keys], top)
+    assert torch.equal(fm.ftab_bot[keys], bot)
+
+
+def test_walk_patterns_keep_ranges_nonempty():
+    """Patterns read off a random table by LF walks: every suffix's range
+    holds the walk's row, so the recorded pass stays nonempty to the end
+    (but for walks through the $ row), and the ftab search finds them."""
+    fm = bench_fm.random_fm(1 << 14, "cpu", seed=3, big=True)
+    rng = np.random.default_rng(4)
+    rows = torch.from_numpy(rng.integers(0, fm.n, 400))
+    pat = bench_fm.walk_patterns(fm, rows, 30)
+    lens = torch.full((400,), 30, dtype=torch.int32)
+    tops, bots = tfm.backward_search_record_body(fm, pat, lens)
+    ok = tfm.widen(tops) < tfm.widen(bots)
+    assert float(ok[-1].float().mean()) > 0.97
+    top, bot = tfm.backward_search_body(fm, pat, lens, True)
+    assert torch.equal(top, torch.where(ok[-1], tops[-1], 0))
+
+
+def test_cont_work_counts_the_plain_steps(tile):
+    """cont_work counts, lane by lane, the LF steps of a continuation walk:
+    the positions the plain walk moves, but for a last move onto an N
+    (which empties the range without a side fetch); and at most two
+    distinct blocks a step."""
+    fm, pat, lens = tile
+    P, L = pat.shape
+    rng = np.random.default_rng(6)
+    rec = tfm.backward_search_record_body(fm, pat, lens)
+    cb = torch.from_numpy(rng.integers(0, P, 300).astype(np.int32))
+    pos = torch.from_numpy(rng.integers(-1, L, 300).astype(np.int32))
+    at = (lens.long()[cb.long()] - 1 - pos.long()).clamp(0, L)
+    top, bot = rec[0][at, cb.long()], rec[1][at, cb.long()]
+    steps, blocks = bench_fm.cont_work(fm, pat, cb, pos, top, bot, L)
+    pos_out, t_out, b_out = tfm.one_mm_phase1_body(fm, pat, cb, pos, top,
+                                                   bot, L)
+    moved = (pos - pos_out).long()
+    on_n = (moved - steps) == 1
+    assert bool(((moved == steps) | on_n).all())
+    assert bool((t_out[on_n] == 0).all() and (b_out[on_n] == 0).all())
+    assert int(steps.sum()) > 0 and on_n.any()
+    assert 0 < blocks <= 2 * int(steps.sum())
+
+
+def test_resolve_blocks_follow_the_walk():
+    """resolve_blocks replays the walk-left: on a big layout forced on a
+    small index (every chain marked within 16 trips) its distinct blocks
+    are those of the rows SA[row] - k, k = 0..SA[row] % 16, of the valid
+    lanes."""
+    g = fm_genome(6)
+    idx = build_index(f">g\n{dna.decode(g)}\n")
+    d = idx.fw
+    fm = tfm.to_device(d, "cpu", big=True)
+    rng = np.random.default_rng(8)
+    rows = rng.integers(0, d.n, 300)
+    valid = rng.random(300) < 0.8
+    inv = np.empty(d.n, np.int64)
+    inv[d.sa] = np.arange(d.n)
+    want = set()
+    for r in rows[valid]:
+        v = int(d.sa[r])
+        for k in range(v % 16 + 1):
+            want.add(int(inv[v - k]) >> 6)
+    got = bench_fm.resolve_blocks(fm, torch.from_numpy(rows.astype(np.int32)),
+                                  torch.from_numpy(valid))
+    assert got == len(want)

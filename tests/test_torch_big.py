@@ -70,6 +70,36 @@ def test_to_device_big_fields_equal_jax(genome, direction):
     assert (t.n, t.primary) == (int(j.n), int(j.primary))
 
 
+@pytest.mark.parametrize("source", ["to_device", "convert"])
+def test_big_records_layout(genome, source):
+    """A big direction's block rows as the kernels read them: contiguous
+    [n_blocks+1, 8] sides (the walks' and the walk-left's) and [n_blocks+1,
+    4] mark rows, 16-byte aligned, built alike by to_device and from the
+    JAX package's arrays (convert.fm_from_numpy), with the JAX values; a
+    small direction has no marks."""
+    from bowtie2_server_tpu_torch import convert
+    _, jidx, tidx = genome
+    j = jfm.to_device(jidx.fw, big=True)
+    if source == "to_device":
+        t = tfm.to_device(tidx.fw, "cpu", big=True)
+    else:
+        t = convert.fm_from_numpy(
+            {k: np.asarray(getattr(j, k)) for k in
+             ("side", "cnt", "sa", "ftab_top", "ftab_bot", "n", "primary",
+              "mark", "sa_samp", "off_rate")}, "cpu")
+    rows = t.side.shape[0]
+    assert t.side.shape == (rows, 8) and t.side.is_contiguous()
+    assert t.mark.shape == (rows, 4) and t.mark.is_contiguous()
+    assert t.side.dtype == t.mark.dtype == torch.int32
+    assert t.side.data_ptr() % 16 == 0 and t.mark.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(_u32(t.side), np.asarray(j.side))
+    np.testing.assert_array_equal(_u32(t.mark), np.asarray(j.mark))
+    np.testing.assert_array_equal(_u32(t.sa_samp), np.asarray(j.sa_samp))
+    assert t.off_rate == int(j.off_rate) and t.big
+    small = tfm.to_device(tidx.fw, "cpu")
+    assert small.mark is None and small.side.is_contiguous()
+
+
 @pytest.mark.parametrize("direction", ["fw", "mirror"])
 def test_resolve_rows_equals_jax_and_sa(genome, direction):
     """The walk-left on 4096 random rows (the primary row, row 0 and the

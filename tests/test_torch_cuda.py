@@ -207,6 +207,152 @@ def test_fm_resolve_equals_plain(direction, fm_index, cuda_device):
                                   d.sa[rows[valid]].astype(np.int32))
 
 
+def _resolve_lanes(d, rng, n_lanes):
+    """Rows for fm_resolve whose walk-left takes every step count from 0 to
+    15 in the first 16 lanes (all in one warp of the kernel), then random
+    rows, the primary row, row 0 and the last rows, a tenth invalid; and
+    their steps (SA % 16)."""
+    sa = np.asarray(d.sa)
+    rows = rng.integers(0, d.n, n_lanes)
+    for k in range(16):
+        rows[k] = np.flatnonzero(sa % 16 == k)[rng.integers(0, 50)]
+    edge = [d.primary, 0, d.n - 1, d.n - 2, d.n - 65]
+    rows[16 : 16 + len(edge)] = edge[: max(0, n_lanes - 16)]
+    valid = rng.random(n_lanes) < 0.9
+    valid[: 16 + len(edge)] = True
+    return rows.astype(np.int32), valid, sa[rows] % 16
+
+
+@pytest.mark.parametrize("n_lanes", [16, 333, 4096 + 37])
+def test_fm_resolve_every_trip_count(n_lanes, fm_index, cuda_device):
+    """fm_resolve on lanes that end at every trip from 0 to 15 in one warp,
+    at lane counts that are not a multiple of the warp or of the kernel's
+    block (256 rows), against the plain version and the full SA."""
+    from bowtie2_server_tpu_torch.ops import fm as tfm
+    d = fm_index.fw
+    rows, valid, steps = _resolve_lanes(d, np.random.default_rng(n_lanes),
+                                        n_lanes)
+    assert (np.sort(steps[:16]) == np.arange(16)).all()
+    T = lambda a, dev: torch.from_numpy(a).to(dev)
+    fm = tfm.to_device(d, cuda_device, big=True)
+    got = tfm.resolve_rows_body(fm, T(rows, cuda_device),
+                                T(valid, cuda_device))
+    want = tfm.resolve_rows_body(tfm.to_device(d, "cpu", big=True),
+                                 T(rows, "cpu"), T(valid, "cpu"))
+    assert torch.equal(got.cpu(), want)
+    np.testing.assert_array_equal(want.numpy()[valid],
+                                  d.sa[rows[valid]].astype(np.int32))
+    assert (want.numpy()[~valid] == 0).all()
+
+
+@pytest.mark.parametrize("n_iter_short", [False, True])
+def test_fm_resolve_unmarked_and_invalid(n_iter_short, cuda_device):
+    """A random table's marks (bench_fm.random_fm: density 1/16, so a third
+    of the chains meet no mark within 16 trips) and a tenth of the rows
+    invalid: the kernel keeps the JAX loop's 0 for both, and equals the
+    plain version on the rest; with off_rate 2 (4 trips) most chains run
+    out."""
+    from bowtie2_server_tpu_torch.ops import fm as tfm
+    from bowtie2_server_tpu_torch.scripts import bench_fm
+    off_rate = 2 if n_iter_short else 4
+    n = (1 << 16) + 64 * 3 + 5
+    fm = bench_fm.random_fm(n, cuda_device, seed=4, big=True,
+                            off_rate=off_rate)
+    rng = np.random.default_rng(5)
+    rows = rng.integers(0, n, 5000)
+    rows[:4] = (fm.primary, 0, n - 1, n - 64)
+    valid = rng.random(5000) < 0.9
+    rows_t = torch.from_numpy(rows.astype(np.int32)).to(cuda_device)
+    valid_t = torch.from_numpy(valid).to(cuda_device)
+    got = tfm.resolve_rows_body(fm, rows_t, valid_t)
+    off, steps = tfm.walk_left_torch(fm, rows_t, valid_t)
+    assert torch.equal(got, tfm.narrow(off))
+    unmarked = valid_t & (steps == (1 << off_rate)) & (off == 0)
+    assert int(unmarked.sum()) > 100
+    assert int(got[~valid_t].abs().sum()) == 0
+
+
+def _block_edge_lanes(d, rng, n_lanes):
+    """(top, bot) [n_lanes] uint32 ranges at the sides' edges: top at and
+    beside 64-row block boundaries, at the primary row's block and at the
+    top of the table (n - 1, n), bot 0, 1, 2, 63, 64, 65 or 200 rows on,
+    so that both ends lie in one block, in adjacent blocks or further
+    apart."""
+    b = 64 * rng.integers(1, max(2, d.n // 64), 8)
+    tops = np.concatenate([
+        b - 1, b, b + 1, b + 63,
+        [0, 1, 63, 64, d.primary - 1, d.primary, d.primary + 1,
+         d.primary // 64 * 64, d.primary // 64 * 64 + 63,
+         d.n - 66, d.n - 65, d.n - 64, d.n - 2, d.n - 1, d.n]])
+    tops = np.clip(tops, 0, d.n)
+    top = np.resize(tops, n_lanes)
+    width = np.resize([0, 1, 2, 63, 64, 65, 200], n_lanes)
+    rng.shuffle(width)
+    return top, np.clip(top + width, 0, d.n)
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["int", "uint32"])
+def test_fm_walk_block_edges(big, fm_index, cuda_device):
+    """fm_walk continuations and fm_lf_step from ranges at the sides' edges
+    (both ends in one block, in adjacent blocks, in the primary row's
+    block, at the top of the table, the uint32 rows as int32 bit patterns
+    on the big layout), over 333 lanes (not a multiple of the warp or of
+    the block), against the plain versions."""
+    from bowtie2_server_tpu_torch.ops import fm as tfm
+    d = fm_index.fw
+    rng = np.random.default_rng(11)
+    P, L = 333, 37                 # a pattern stride that is not 16-aligned
+    top, bot = _block_edge_lanes(d, rng, P)
+    assert ((top // 64 == bot // 64) & (top < bot)).any()
+    assert ((top // 64 + 1 == bot // 64) & (top < bot)).any()
+    pat = rng.integers(0, 4, (P, L)).astype(np.uint8)
+    pat[rng.random((P, L)) < 0.01] = 4
+    pos = rng.integers(-1, L, P).astype(np.int32)
+    cb = rng.permutation(P).astype(np.int32)
+    c = rng.integers(0, 6, P).astype(np.int32)
+    args = (pat, cb, pos, top.astype(np.int32), bot.astype(np.int32))
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        fm = tfm.to_device(d, dev, big=big)
+        T = lambda a: torch.from_numpy(a).to(dev)
+        outs[str(dev)] = (
+            *tfm.one_mm_phase1_body(fm, *map(T, args), L),
+            *tfm.lf_step(fm, T(c), T(args[3]), T(args[4])))
+    for g, w in zip(outs[str(cuda_device)], outs["cpu"]):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["int", "uint32"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fm_walk_patterns_any_alignment(big, offset, fm_index, cuda_device):
+    """The recorded pass and the ftab search, each lane's next character
+    loaded a step ahead: patterns of 22 and 45 bases a row (strides that
+    are not 16-aligned), from a tensor that starts off a 16-byte boundary
+    (offset 1: a view one row into another), lengths 0 to the full row,
+    517 lanes; against the plain versions."""
+    from bowtie2_server_tpu_torch.ops import fm as tfm
+    d = fm_index.fw
+    text = fm_index.joined
+    rng = np.random.default_rng(13 + offset)
+    for L in (22, 45):
+        P = 517
+        starts = rng.integers(0, len(text) - L, P + offset)
+        pat = np.stack([text[s : s + L] for s in starts]).astype(np.uint8)
+        pat[rng.random(pat.shape) < 0.005] = 4
+        lens = rng.integers(0, L + 1, P).astype(np.int32)
+        outs = {}
+        for dev in ("cpu", cuda_device):
+            fm = tfm.to_device(d, dev, big=big)
+            p = torch.from_numpy(pat).to(dev)[offset:]
+            ln = torch.from_numpy(lens).to(dev)
+            outs[str(dev)] = (
+                *tfm.backward_search_record_body(fm, p, ln),
+                *tfm.backward_search_body(fm, p, ln, True),
+                *tfm.backward_search_body(fm, p, ln, False))
+        for g, w in zip(outs[str(cuda_device)], outs["cpu"]):
+            assert torch.equal(g.cpu(), w)
+
+
 def _workload(seed=3, n=3000):
     """A 60 kbp chromosome plus 150 contigs of 1 kbp; every other read
     starts within 40 bases of a contig end, so one batch has more than 128
