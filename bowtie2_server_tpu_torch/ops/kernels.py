@@ -133,14 +133,15 @@ def cfg_args(cfg) -> list[int]:
             int(cfg.rfg_open), int(cfg.rfg_ext), int(cfg.gapbar)]
 
 
-def loop_mix(symbol: str) -> tuple[int, dict[str, int]]:
-    """Instruction mix of the largest loop (the span from a backward
-    branch's target to the branch) of the kernel whose mangled name
-    contains `symbol`, read from the SASS of the built library with the
-    toolkit's cuobjdump. Loops holding ENDCOLLECTIVE are skipped: they are
-    the compiler's fallback for warp shuffles it cannot prove converged,
-    not the kernel's own loop. Returns (instructions in the loop, {opcode:
-    count}); (0, {}) when no loop is found."""
+def loop_mix(symbol: str, rank=None) -> tuple[int, dict[str, int]]:
+    """Instruction mix of one loop (the span from a backward branch's
+    target to the branch) of the kernel whose mangled name contains
+    `symbol`, read from the SASS of the built library with the toolkit's
+    cuobjdump: the largest loop, or the one for which rank(instructions,
+    {opcode: count}) is largest. Loops holding ENDCOLLECTIVE are skipped:
+    they are the compiler's fallback for warp shuffles it cannot prove
+    converged, not the kernel's own loop. Returns (instructions in the
+    loop, {opcode: count}); (0, {}) when no loop is found."""
     so, _, _ = build()
     tool = Path(_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
@@ -151,16 +152,20 @@ def loop_mix(symbol: str) -> tuple[int, dict[str, int]]:
         raise ValueError(f"no kernel matching {symbol!r} in {so.name}")
     ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", bodies[0])
     addrs = [int(a, 16) for a, _ in ins]
-    lo = hi = 0
+    best, best_key = (0, {}), None
     for n, (_, txt) in enumerate(ins):
         m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", txt)
-        if m and int(m.group(1), 16) < addrs[n] \
-                and int(m.group(1), 16) in addrs:
-            start = addrs.index(int(m.group(1), 16))
-            collective = any("ENDCOLLECTIVE" in t for _, t in ins[start : n])
-            if n + 1 - start > hi - lo and not collective:
-                lo, hi = start, n + 1
-    ops = [re.sub(r"^@!?U?P\w+\s+", "", t.strip()).split()[0].split(".")[0]
-           for _, t in ins[lo:hi]]
-    mix = Counter(o for o in ops if o != "NOP")
-    return sum(mix.values()), dict(mix.most_common())
+        if not (m and int(m.group(1), 16) < addrs[n]
+                and int(m.group(1), 16) in addrs):
+            continue
+        start = addrs.index(int(m.group(1), 16))
+        if any("ENDCOLLECTIVE" in t for _, t in ins[start : n]):
+            continue
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", t.strip()).split()[0]
+               .split(".")[0] for _, t in ins[start : n + 1]]
+        mix = Counter(o for o in ops if o != "NOP")
+        count = sum(mix.values())
+        key = rank(count, mix) if rank else count
+        if best_key is None or key > best_key:
+            best, best_key = (count, dict(mix.most_common())), key
+    return best

@@ -23,10 +23,10 @@ Three implementations of one function:
     --dpad up to 255): the register kernel `ops/csrc/sw_banded.cu` (one
     thread per problem, DPX max-adds and byte-table scores, with a general
     kernel behind it for scores outside a byte) for K = 32, 64, 128, and
-    the wide-band kernel
-    `ops/csrc/sw_banded_wide.cu` (one warp per problem) for K = 256, 512,
-    1024 (`_launch` also runs it at K = 128, to time it beside the
-    register kernel there);
+    the wide-band kernel `ops/csrc/sw_banded_wide.cu` (K/J lanes per
+    problem, J = `wide_cells(local)` cells a lane) for K = 256, 512, 1024
+    (`_launch` also runs it at K = 128, to time it beside the register
+    kernel there);
   - the numpy oracle `banded_fill_numpy` (and `banded_traceback`, the host
     traceback of the main path's rare gapped winners).
 `banded_dp` takes the plain version only for tensors on the CPU.
@@ -44,6 +44,32 @@ DEFAULT_BAND = 32
 # REGISTER_BAND_MAX, the wide-band kernel above
 KERNEL_BANDS = (32, 64, 128, 256, 512, 1024)
 REGISTER_BAND_MAX = 128
+
+
+def wide_cells(local: bool) -> int:
+    """Band cells a lane of the wide-band kernel owns: 64 end-to-end, 32
+    in --local (bt2_sw_banded_wide's launch)."""
+    return 32 if local else 64
+
+
+def wide_loop(K: int, local: bool):
+    """(symbol, rank) for `kernels.loop_mix`: the wide-band kernel's row
+    loop over gap rows on the byte tables, the one nearly all its cells
+    take. Its loops of mixed rows and of both score routes hold the same
+    shuffles and more code, its loops outside the gap run one shuffle, so
+    it is the smallest of the loops with the most shuffles."""
+    J = wide_cells(local)
+    return (f"banded_wide_kernelILi{J}ELi{K // J}ELb{int(local)}ELb1EE",
+            lambda n, mix: (mix.get("SHFL", 0), -n))
+
+
+def general_loop(K: int, local: bool):
+    """(symbol, rank) for `kernels.loop_mix`: the general kernel's row
+    loop over gap rows on its int16 tables (with the --local key), the
+    largest of the loops with the most PRMTs (its loops outside the gap
+    run read the same tables, its exact route none or fewer)."""
+    return (f"banded_general_kernelILi{K}ELb{int(local)}ELb{int(local)}EE",
+            lambda n, mix: (mix.get("PRMT", 0), n))
 
 
 # ---------------------------------------------------------------- oracle ---

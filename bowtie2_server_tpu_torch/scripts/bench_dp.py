@@ -45,7 +45,8 @@ import torch
 from ..ops import kernels
 from ..ops.alu_probe import OPS_PER_STEP, alu_chain
 from ..ops.sw import SwConfig
-from ..ops.sw_banded import REGISTER_BAND_MAX, banded_dp
+from ..ops.sw_banded import (REGISTER_BAND_MAX, banded_dp, wide_cells,
+                             wide_loop)
 
 REPS = 10
 # the register banded kernel's profiler name (not its general kernel, which
@@ -152,13 +153,13 @@ def kernel_ops_per_cell(K: int, local: bool) -> float:
     the CUDA kernel that serves band K: for the register kernel the loop
     over the gap rows, where nearly all cells are (rows with gaps barred
     issue fewer; the end-to-end arg-max of the one scored row runs after
-    the loops), for the wide-band kernel its row loop."""
+    the loops), for the wide-band kernel its loop over the gap rows
+    (sw_banded.wide_loop), over the cells a lane owns."""
     if K <= REGISTER_BAND_MAX:
         n, _ = kernels.loop_mix(f"banded_kernelILi{K}ELb{int(local)}E")
         return n / K
-    J = K // 32
-    n, _ = kernels.loop_mix(f"banded_wide_kernelILi{J}ELb{int(local)}E")
-    return n / J
+    n, _ = kernels.loop_mix(*wide_loop(K, local))
+    return n / wide_cells(local)
 
 
 def run(device="cuda", P: int = 32768, L: int = 100, K: int = 32,

@@ -17,17 +17,19 @@ prints no result line:
      tolerance 0: all values are int32), with the median device time of
      each under torch.profiler (bench_dp.device_ms; the CUDA-event time of
      a call, which also brackets the wrapper's host work, beside it) and
-     its bound: the wide-band kernel (K = 128, beside the register kernel
-     at the same band, and K = 256, 512), the ALU-ceiling probe (its rate
-     is the int32 ceiling every bound divides by), the register banded
-     kernel at the shapes of scripts/bench_banded.py (P = 33792, Lq = 128:
-     K = 64 with 4 in 5 reads of 128 bases, K = 64 with every read 100
-     bases as on the main path, K = 32, K = 128), with the SASS
-     instructions a cell of its row loop, its general kernel (the one for
-     scores outside a byte, which the paths launch after it) at the K = 64
-     shape under a scoring that sends every problem there, and both on the
-     edge tile of tests/torch_tiles.py; the rectangle kernel at the three
-     shapes of
+     its bound: the wide-band kernel at K = 128 (beside the register
+     kernel at the same band), the ALU-ceiling probe (its rate is the
+     int32 ceiling every bound divides by), the three banded kernels at the
+     shapes of scripts/bench_banded.py (P = 33792, Lq = 128): the register
+     kernel at K = 64 with 4 in 5 reads of 128 bases, K = 64 with every
+     read 100 bases as on the main path, K = 32, K = 128; the wide-band
+     kernel at K = 256 (both length mixes) and K = 512; the general kernel
+     (the one for scores outside a byte, which the paths launch after the
+     register kernel) at the first K = 64 shape under a scoring that sends
+     every problem there; with the SASS instructions a cell of each one's
+     row loop over gap rows, and all three on the edge tile of
+     tests/torch_tiles.py at every band under every scoring of the tests;
+     the rectangle kernel at the three shapes of
      scripts/bench_rect.py (P = 4096; the unpaired path's run-boundary
      candidates; the paired path's mate-rescue windows) and on the
      tie-heavy tile of tests/torch_tiles.py;
@@ -129,8 +131,8 @@ prints no result line:
      host path: 256 reads under -k 2000 and under -a on a genome with a
      100 bp unit planted 300 times, and an index without its mirror
      direction (SAM lines); 512 pairs (SAM lines); one batch of 2048 reads
-     at --dpad 32, band K = 256, the path on which the wide-band kernel
-     must launch; under force_big, 2048 reads (decoded batch results and
+     at --dpad 32 (band K = 256) and one at --dpad 64 (K = 512), the paths
+     on which the wide-band kernel must launch; under force_big, 2048 reads (decoded batch results and
      SAM lines; and the card's SAM equal to the small path's on the card)
      and 512 pairs (SAM lines);
   6. the entry point: `python -m bowtie2_server_tpu_torch align` on 10k reads
@@ -190,7 +192,8 @@ SEEDLESS_FRAC = 0.02
 # limit leaves room for mates whose substitutions make another placement
 # score as well.
 PAIR_ORIGIN_MIN = 0.99
-WIDE_MAXHALF = 32   # --dpad whose band (K = 256) the wide-band kernel serves
+# --dpad values whose bands (K = 256, 512) the wide-band kernel serves
+WIDE_MAXHALVES = (32, 64)
 # the short-read path (the general shape: FM walks on the card): 36 bp
 # reads with 0-2 substitutions on the main path's genome, --sensitive e2e
 SR_LEN = 36
@@ -505,22 +508,12 @@ def phase_kernels(contigs):
         arrs = bench_banded.banded_inputs(seed, P, K, lq, chrom=contigs[0])
         return arrs, [torch.from_numpy(a).to(dev) for a in arrs]
 
-    # the wide-band kernel (runs, e2e lens, K, lq), bounds once the probe
-    # has run: at K = 128 (--dpad 16-31, where banded_dp routes to the
-    # register kernel, timed beside it below), and at the bands of --dpad
-    # 32..127 (Lq of 100 bp reads, rows padded to 128); K = 256 e2e is the
-    # one reported
+    # the wide-band kernel at K = 128 (--dpad 16-31, where banded_dp routes
+    # to the register kernel, timed beside it below; bound once the probe
+    # has run)
     lq, P = 128, 33792
     arrs, args = inputs(9, P, 128, lq)
-    wide = {"k128": (wide_runs(128, args), arrs[2], 128, lq)}
-    P = 4096
-    runs = []
-    for K in (256, 512):
-        arrs, args = inputs(7, P, K, lq)
-        runs += wide_runs(K, args)
-        if K == 256:
-            lens256 = arrs[2]
-    wide["main"] = (runs, lens256, 256, lq)
+    wide128 = (wide_runs(128, args), arrs[2])
 
     # the ALU-ceiling probe at the DP microbench's shape, after the banded
     # kernels have run the card up to its clocks: its rate is the int32
@@ -539,27 +532,26 @@ def phase_kernels(contigs):
         ceiling_ops_per_s=ceiling,
         bound_note="the probe's own time: it measures the int32 ceiling "
                    "that the other kernels' bounds divide by")}
-    ws = {}
-    for key, (runs, lens, K, lq) in wide.items():
-        ws[key] = summary(runs, bench_banded.banded_bound(lens, lq, K, False,
-                                                          ceiling))
-    out["sw_banded_wide"] = dict(ws["main"], k128=ws["k128"])
-    out["sw_banded_wide"]["max_abs_err"] = max(w["max_abs_err"]
-                                               for w in ws.values())
+    k128 = summary(wide128[0], bench_banded.banded_bound(
+        wide128[1], lq, 128, False, ceiling))
 
-    # the register kernel at bench_banded's shapes (the fused stage's
-    # P = 33792, Lq = 128: K = 64 with 4 in 5 problems of length 128, K =
-    # 64 with every length 100, the main path's mix, K = 32 and K = 128),
-    # e2e and local; K = 64 e2e at the first mix is the one reported
+    # the three banded kernels at bench_banded's shapes (the fused stage's
+    # P = 33792, Lq = 128), e2e and local: the register kernel at K = 64
+    # with 4 in 5 problems of length 128, K = 64 with every length 100 (the
+    # main path's mix), K = 32 and K = 128; the wide-band kernel at K = 256
+    # (both mixes) and K = 512; the general kernel at the k64 shape under
+    # LARGE_SCORE_CFG. Reported: k64 e2e, k256 e2e and the general row.
     brows = bench_banded.measure(dev, ceiling, reps=5, plain_reps=3,
                                  chrom=contigs[0])
     for r in brows:
-        log(f"sw_banded {r['shape']} {r['mode']}: Lq={r['lq']} K={r['K']} "
+        log(f"{r['kernel'].strip(':<')} {r['shape']} {r['mode']}: Lq={r['lq']} K={r['K']} "
             f"P={r['P']} max_abs_err={r['max_abs_err']} kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{r['frac_of_bound']:.4f} of bound")
-    # the SASS of its row loop (the gap rows' loop, the largest)
+    # the SASS of the row loops: the register kernel's gap-row loop (its
+    # largest), the wide-band kernel's and the general kernel's loops over
+    # gap rows on their tables (sw_banded.wide_loop, general_loop)
     loop = {}
     for K in (32, 64, 128):
         for local in (False, True):
@@ -568,43 +560,62 @@ def phase_kernels(contigs):
             log(f"banded kernel row loop, K = {K}, "
                 f"{'local' if local else 'e2e'} (SASS): {n} instructions, "
                 f"{n / K:.2f} a cell {mix}")
-    # and exact on the edge tile of tests/torch_tiles.py (P = 129, lengths
-    # from < 0 to past Lq, penalties past the byte scores' range)
-    edge_err = 0
-    for K in (32, 64, 128):
+    wloop = {}
+    for K in (128, 256, 512, 1024):
+        for local in (False, True):
+            n, mix = kernels.loop_mix(*tsb.wide_loop(K, local))
+            cells = tsb.wide_cells(local)
+            wloop[f"K{K}{'_local' if local else ''}"] = n / cells
+            log(f"wide-band kernel gap-row loop, K = {K}, "
+                f"{'local' if local else 'e2e'} (SASS, a lane's {cells} "
+                f"cells): {n} instructions, {n / cells:.2f} a cell {mix}")
+    gloop = {}
+    for local in (False, True):
+        n, mix = kernels.loop_mix(*tsb.general_loop(64, local))
+        gloop[f"K64{'_local' if local else ''}"] = n / 64
+        log(f"general kernel gap-row loop (int16 tables), K = 64, "
+            f"{'local' if local else 'e2e'} (SASS): {n} instructions, "
+            f"{n / 64:.2f} a cell {mix}")
+    # and exact on the edge tile of tests/torch_tiles.py at every band
+    # (P = 129, lengths from < 0 to past Lq, penalties past the byte
+    # scores' range) under every scoring of the tests
+    edge_err = {}
+    for K in tsb.KERNEL_BANDS:
         edge = [torch.from_numpy(a).to(dev)
                 for a in banded_edge_tile(5 * K, 40, K)]
         for name, kw in dict(CFGS, large_scores=LARGE_SCORE_CFG).items():
             cfg = tsw.SwConfig(**kw)
             got = tsb.banded_dp(cfg, K, *edge)
             want = tsb.banded_tile_torch(cfg, K, *edge)
-            edge_err = max([edge_err] + [int((g - w).abs().max())
-                                         for g, w in zip(got, want)])
-    log(f"sw_banded edge tile, K = 32, 64, 128, {len(CFGS) + 1} scorings: "
-        f"max_abs_err={edge_err}")
-    main = brows[0]
-    out["sw_banded"] = dict(
-        max_abs_err=max([edge_err] + [r["max_abs_err"] for r in brows]),
-        **{k: main[k] for k in ("ms", "event_ms", "plain_ms", "bound_ms",
-                                "bound_by", "frac_of_bound")}, shapes=brows,
-        row_loop_instructions_per_cell=loop)
-    # the general kernel at the K = 64 shape: a match bonus past a byte
-    # sends every problem to it, so the call launches it alone
-    P, K, lq = 33792, 64, 128
-    arrs, args = inputs(5, P, K, lq)
-    run = hold(f"sw_banded_general local, ma = {LARGE_SCORE_CFG['ma']}: "
-               f"Lq={lq} K={K} P={P}", tsw.SwConfig(**LARGE_SCORE_CFG),
-               lambda c: tsb.banded_dp(c, K, *args),
-               lambda c: tsb.banded_tile_torch(c, K, *args),
-               "banded_general_kernel")
+            which = "sw_banded" if K <= 128 else "sw_banded_wide"
+            edge_err[which] = max([edge_err.get(which, 0)] + [
+                int((g - w).abs().max()) for g, w in zip(got, want)])
+    log(f"banded edge tile, K = {tsb.KERNEL_BANDS}, {len(CFGS) + 1} "
+        f"scorings: max_abs_err {edge_err}")
+
+    def report(row, **extra):
+        return dict(**{k: row[k] for k in ("ms", "event_ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "frac_of_bound")}, **extra)
+
+    reg = [r for r in brows if r["K"] <= 128 and r["mode"] != "large_scores"]
+    wide = [r for r in brows if r["K"] > 128]
+    gen = next(r for r in brows if r["mode"] == "large_scores")
+    out["sw_banded"] = report(
+        reg[0], max_abs_err=max([edge_err["sw_banded"]]
+                                + [r["max_abs_err"] for r in reg]),
+        shapes=reg, row_loop_instructions_per_cell=loop)
+    out["sw_banded_wide"] = report(
+        wide[0], max_abs_err=max([edge_err["sw_banded_wide"], k128[
+            "max_abs_err"]] + [r["max_abs_err"] for r in wide]),
+        shapes=wide, k128=k128, row_loop_instructions_per_cell=wloop)
     fast = next(r for r in brows if r["shape"] == "k64" and
                 r["mode"] == "local")
-    log(f"  beside the register kernel at this shape, local: "
-        f"{fast['ms']:.4f} ms")
-    out["sw_banded_general"] = dict(
-        summary([run], bench_banded.banded_bound(arrs[2], lq, K, True,
-                                                 ceiling)),
-        max_abs_err=max(run[0], edge_err))
+    log(f"  general kernel beside the register kernel at its shape, local: "
+        f"{gen['ms']:.4f} against {fast['ms']:.4f} ms")
+    out["sw_banded_general"] = report(
+        gen, max_abs_err=max(gen["max_abs_err"], edge_err["sw_banded"]),
+        row_loop_instructions_per_cell=gloop)
 
     # the rectangle kernel at bench_rect's three shapes, e2e and local; the
     # unpaired path's shape (P = 210) is the one reported
@@ -1917,9 +1928,10 @@ def phase_parity_big(idx, contigs, pidx, chroms, small, n=2048,
                            "fm_resolve")
 
 
-def phase_parity_wide(idx, contigs, n=2048):
-    """One batch at --dpad WIDE_MAXHALF (band K = 256) on both devices: the
-    path of the wide-band kernel. Returns its launch counts."""
+def phase_parity_wide(idx, contigs, maxhalf, n=2048):
+    """One batch at --dpad maxhalf (WIDE_MAXHALVES: bands K = 256 and 512)
+    on both devices: a path of the wide-band kernel. Returns its launch
+    counts (zeroed just before the card's batch, read just after)."""
     import torch
     from bowtie2_server_tpu_torch.align.pipeline import (SearchPolicy,
                                                          UnpairedAligner)
@@ -1927,7 +1939,7 @@ def phase_parity_wide(idx, contigs, n=2048):
     from bowtie2_server_tpu_torch.io.sam import sam_record
     from bowtie2_server_tpu_torch.ops import kernels
     names, seqs, quals, _ = make_reads(15, contigs, n)
-    pol = SearchPolicy(maxhalf=WIDE_MAXHALF)
+    pol = SearchPolicy(maxhalf=maxhalf)
     sams = {}
     for dev in ("cuda", "cpu"):
         al = UnpairedAligner(idx, policy=pol, device=dev)
@@ -1941,12 +1953,12 @@ def phase_parity_wide(idx, contigs, n=2048):
     diff = sum(a != b for a, b in zip(sams["cuda"], sams["cpu"]))
     if diff:
         raise RuntimeError(f"{diff} SAM lines differ between CUDA and CPU "
-                           f"at --dpad {WIDE_MAXHALF}")
-    log(f"CUDA vs CPU at --dpad {WIDE_MAXHALF} (band {al.band}): {n} reads, "
+                           f"at --dpad {maxhalf}")
+    log(f"CUDA vs CPU at --dpad {maxhalf} (band {al.band}): {n} reads, "
         f"SAM lines identical; kernel launches {launches}")
     if launches["sw_banded_wide"] == 0:
-        raise RuntimeError("the --dpad 32 path never launched "
-                           "sw_banded_wide")
+        raise RuntimeError(f"the --dpad {maxhalf} path never launched "
+                           f"sw_banded_wide")
     return launches
 
 
@@ -2111,19 +2123,21 @@ def main(argv=None):
     phase_parity_host()
     phase_parity_paired(pidx, chroms)
     phase_parity_big(idx, contigs, pidx, chroms, small_sam)
-    wide_launches = phase_parity_wide(idx, contigs)
+    wide_launches = [phase_parity_wide(idx, contigs, m)
+                     for m in WIDE_MAXHALVES]
     phase_cli(base, contigs)
     phase_cli_opts(base, contigs)
     phase_cli_paired(pbase, chroms)
     # each kernel's launches on its path: the unpaired main path for the
     # banded and rectangle kernels (the paired path is checked above), the
-    # short-read path for the FM kernels, the --dpad 32 batch for the
-    # wide-band kernel, the DP microbench for the probe, the big-index path
-    # for fm_resolve
+    # short-read path for the FM kernels, the --dpad 32 and --dpad 64
+    # batches for the wide-band kernel, the DP microbench for the probe,
+    # the big-index path for fm_resolve
     path_launches = dict(sw_banded=launches["sw_banded"],
                          sw_banded_general=launches["sw_banded_general"],
                          sw=launches["sw"],
-                         sw_banded_wide=wide_launches["sw_banded_wide"],
+                         sw_banded_wide=sum(w["sw_banded_wide"]
+                                            for w in wide_launches),
                          alu_probe=dp_launches["alu_probe"],
                          fm_walk=sr_launches["fm_walk"],
                          fm_lf_step=sr_launches["fm_lf_step"],

@@ -16,7 +16,8 @@ from bowtie2_server_tpu_torch.ops import alu_probe, kernels  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw as tsw  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw_banded as tsb  # noqa: E402
 from torch_tiles import (CFGS, RECT_CFGS, LARGE_SCORE_CFG,  # noqa: E402
-                         banded_edge_tile, banded_tile, fm_edge_tile,
+                         banded_edge_tile, banded_int16_edge_tile,
+                         banded_ragged_tile, banded_tile, fm_edge_tile,
                          fm_genome, rect_tie_tile, rect_tile)
 
 
@@ -66,6 +67,67 @@ def test_wide_kernel_at_register_band(name, cuda_device):
         got = tsb._launch(kernel, cfg, 128, *args)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+# scorings of the ragged tiles: the tests' own, gap barriers at both ends
+# that leave the short problems no gap row at all (Lq = 40), and a bonus
+# past a byte (every row on the exact route)
+RAGGED_CFGS = dict(CFGS, e2e_gapbar15=dict(gapbar=15),
+                   local_gapbar15=dict(ma=2, local=True, gapbar=15),
+                   large_scores=LARGE_SCORE_CFG)
+
+
+@pytest.mark.parametrize("P", [1, 3, 5, 33, 129])
+@pytest.mark.parametrize("K", [256, 512, 1024])
+@pytest.mark.parametrize("name", list(RAGGED_CFGS))
+def test_wide_kernel_ragged_warps(name, K, P, cuda_device):
+    """The wide-band kernel with its last warp and the last segment of
+    lanes partly filled (P problems of K/32 lanes each), lengths that
+    differ inside every warp (finished problems beside live ones, gap runs
+    that end at different rows, lengths below 0 and past Lq) and gap
+    barriers at both ends of the read."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in banded_ragged_tile(13 * K + P, 40, K, P)]
+    cfg = tsw.SwConfig(**RAGGED_CFGS[name])
+    n0 = kernels.LAUNCHES["sw_banded_wide"]
+    got = tsb.banded_dp(cfg, K, *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sw_banded_wide"] == n0 + 1
+    want = tsb.banded_tile_torch(cfg, K, *args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# scorings for the score routes: byte scores (penalties past the int8
+# edge take the register kernel's general kernel, the wide kernel's exact
+# route), then scorings the byte tables do not take: a bonus past a byte
+# (--local: with the key; e2e), a negative gap penalty in --local (compare
+# and select), a bonus past int16 (the exact route in every row)
+ROUTE_CFGS = {"e2e": {}, "local": dict(ma=2, local=True),
+              "large_scores": LARGE_SCORE_CFG,
+              "large_e2e": dict(ma=200, npen=3),
+              "local_neg_gap": dict(ma=2, local=True, rdg_ext=-1),
+              "beyond_int16": dict(ma=40000, npen=2, local=True)}
+
+
+@pytest.mark.parametrize("K", tsb.KERNEL_BANDS)
+@pytest.mark.parametrize("name", list(ROUTE_CFGS))
+def test_banded_score_routes(name, K, cuda_device):
+    """Penalties at the int8 edge (128 and -127 fit a signed byte as -mm,
+    129 and -128 do not) and at the edges of the general kernel's int16
+    route (32768 and -127 fit it, 32769 and -128 do not), under scorings
+    that send every problem to the general kernel (K <= 128) or to the
+    wide-band kernel's exact route."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in banded_int16_edge_tile(11 * K, 40, K)]
+    cfg = tsw.SwConfig(**ROUTE_CFGS[name])
+    g0 = kernels.LAUNCHES["sw_banded_general"]
+    got = tsb.banded_dp(cfg, K, *args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sw_banded_general"] == g0 + (K <= 128)
+    want = tsb.banded_tile_torch(cfg, K, *args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # P = 129 problems: not a multiple of the rect kernel's warps a block; the
@@ -381,10 +443,10 @@ def _workload(seed=3, n=3000):
     return idx, [f"r{i}" for i in range(n)], seqs, [b"I" * 100] * n
 
 
-# the bands of --dpad 15 (the default), 16 and 32: K = 64 and 128 on the
-# register kernel, 256 on the wide-band kernel (band_for gives no band
-# below 64, so K = 32 is held on tiles only)
-BANDS = {"K64": 15, "K128": 16, "K256": 32}
+# the bands of --dpad 15 (the default), 16, 32 and 64: K = 64 and 128 on
+# the register kernel, 256 and 512 on the wide-band kernel (band_for gives
+# no band below 64, so K = 32 is held on tiles only)
+BANDS = {"K64": 15, "K128": 16, "K256": 32, "K512": 64}
 
 
 def _sams(recs, names):
@@ -419,7 +481,7 @@ def test_aligner_cuda_equals_cpu(local, band, big, cuda_device):
         recs = al.align_batch(make_batch(names, seqs, quals))
         sams[str(dev)] = _sams(recs, idx.ref_names)
     assert sams["cuda"] == sams["cpu"]
-    which = "sw_banded" if band != "K256" else "sw_banded_wide"
+    which = "sw_banded" if band in ("K64", "K128") else "sw_banded_wide"
     assert kernels.LAUNCHES[which] >= 1
     if not local and not big:
         assert kernels.LAUNCHES["sw"] >= 1

@@ -19,7 +19,8 @@ from torch_tiles import (CFGS, P, LARGE_SCORE_CFG,  # noqa: E402
                          banded_edge_tile, banded_tile as make_tile)
 
 
-@pytest.mark.parametrize("K", [32, 64])
+# K = 256 and 512: the wide-band kernel's bands (--dpad 32-127)
+@pytest.mark.parametrize("K", [32, 64, 256, 512])
 @pytest.mark.parametrize("name", list(CFGS))
 def test_banded_torch_equals_jax(name, K):
     lq = 40
@@ -94,7 +95,7 @@ def test_sw_banded_batch_needs_a_device():
                             band.T.astype(np.uint8), SwConfig(), K=32)
 
 
-@pytest.mark.parametrize("K", [32, 64, 128])
+@pytest.mark.parametrize("K", [32, 64, 128, 256, 512])
 @pytest.mark.parametrize("name", list(CFGS) + ["large_scores"])
 def test_banded_edge_tile_torch_equals_jax(name, K):
     """The edge tile the CUDA kernel is held to on the card (P = 129: a

@@ -108,6 +108,33 @@ def banded_edge_tile(seed, lq, K, p=P + 1):
     return [np.ascontiguousarray(a, np.int32) for a in (rd, mm, lens, band)]
 
 
+def banded_ragged_tile(seed, lq, K, p):
+    """banded_edge_tile's problems (p of them) with lengths that differ
+    inside every warp of the wide-band kernel (K/32 lanes a problem, 1 to
+    8 problems a warp): problem q has length (7 q + 3) % (lq + 5) - 1,
+    from -1 to lq + 3, so neighbours finish, and leave their gap runs, at
+    different rows."""
+    rd, mm, _, band = banded_edge_tile(seed, lq, K, max(p, P + 1))
+    rd, mm, band = (np.ascontiguousarray(a[:, :p]) for a in (rd, mm, band))
+    lens = (7 * np.arange(p) + 3) % (lq + 5) - 1
+    return [rd, mm, np.ascontiguousarray(lens, np.int32), band]
+
+
+# mismatch penalties at the edges of the general kernel's int16 route:
+# -mm = -32768 and 127 take it, -32769 and 128 do not
+INT16_EDGE_MM = (32768, 32769, -127, -128)
+
+
+def banded_int16_edge_tile(seed, lq, K, p=P + 1):
+    """banded_edge_tile with one penalty of INT16_EDGE_MM in every fifth
+    problem, at a random row."""
+    rd, mm, lens, band = banded_edge_tile(seed, lq, K, p)
+    rng = np.random.default_rng(seed + 1)
+    for q in range(0, p, 5):
+        mm[rng.integers(0, lq), q] = INT16_EDGE_MM[(q // 5) % 4]
+    return [rd, mm, lens, band]
+
+
 def rect_tile(seed, lq_pad, lc, p=P):
     """[rows, p] int32 inputs: reads planted in their windows with
     substitutions and indels, N codes, ragged read and window lengths."""
