@@ -4,8 +4,6 @@ bt2_search.cpp paired driver paths). Port of
 bowtie2_server_tpu/align/paired.py: both mates run through the port's
 UnpairedAligner on the device given at construction, and mate rescue runs
 the rectangle DP there (the CUDA kernel of ops/csrc/sw.cu on the card).
-Not ported yet: the --met counters and --log-dp-opp (ROADMAP Queue A item
-14).
 
 Strategy: run the full unpaired candidate machinery on both mates, then
  1. enumerate concordant combos from the two candidate sets (classification
@@ -27,9 +25,10 @@ import numpy as np
 
 from ..io.fastq import ReadBatch
 from ..ops.sw import NEG_INF, sw_align_batch
+from ..utils import dna
 from ..utils.rng import RandomSource, select_by_score_order
 from .mapq import mapq_batch, mapq_fn
-from .pipeline import (MAPQ_V, AlnRec, BigCapacityError, ConcatRecs,
+from .pipeline import (AlnRec, BigCapacityError, ConcatRecs,
                        LazyRecs, SearchPolicy, UnpairedAligner, revcomp_batch)
 
 CONCORDANT, DISCORDANT = 1, 0
@@ -186,6 +185,8 @@ class PairedAligner:
         # unmapped, i.e. excluded from TLEN extents (ref:
         # bt2_search.cpp:731 ARG_SC_UNMAPPED_TLEN)
         self.sc_unmapped_tlen = sc_unmapped_tlen
+        self.dp_log_opp = None   # file: log rescue DP problems (--log-dp-opp)
+        self.last_metrics = {}   # the last pair batch's --met counters
 
     # approximate candidate ref start: end - readlen + 1 (exact for
     # ungapped; off by <= #gap bases otherwise — the final classification
@@ -380,7 +381,7 @@ class PairedAligner:
         tot = c1["sc"] + c2["sc"]
         msc = np.asarray(st1.minsc)[w] + np.asarray(st2.minsc)[w]
         per = np.asarray(st1.perfect)[w] + np.asarray(st2.perfect)[w]
-        mapq = mapq_batch(MAPQ_V, tot, np.zeros_like(tot),
+        mapq = mapq_batch(self.up.mapq_v, tot, np.zeros_like(tot),
                           np.zeros(n, bool), msc, per,
                           self.up.sc.monotone)
         # TLEN over unclipped extents (ungapped: ref span == read length);
@@ -480,6 +481,12 @@ class PairedAligner:
             st2 = self.up.collect_wait(h2)
             if skip2.any():
                 self.up.apply_seed_skip(st2, skip2)
+        # per-batch --met counters, both mates summed (ref: the paired
+        # halves of the PerfMetrics merge, bt2_search.cpp:3229-3248)
+        m1 = getattr(st1.recs, "metrics", {})
+        m2 = getattr(st2.recs, "metrics", {})
+        self.last_metrics = {k: m1.get(k, 0) + m2.get(k, 0)
+                             for k in set(m1) | set(m2)}
         B = st1.B
         # fast-pair shortcut: both mates have exactly one (ungapped,
         # interior, untied) candidate and the pair classifies concordant on
@@ -510,6 +517,23 @@ class PairedAligner:
             if scored2[i] and not st1.filtered[i]:
                 jobs += [("1", i, *w)
                          for w in self._rescue_jobs(st2, st1, i, scored2[i])]
+        self.last_metrics["dp_mate"] = len(jobs)   # DPMate* TSV columns
+        if self.up.want_met and jobs:
+            # DPMateLt* gap classes (ref: tallyGappedDp on the mate-search
+            # DPs, aligner_sw_common.h:246): the rescued mate's budget
+            gc, sc = self.up._gapclass_cache, self.up.sc
+            lt10 = lt5 = lt3 = 0
+            for which, i, _, _, _ in jobs:
+                rl = int((b2 if which == "2" else b1).lens[i])
+                mx = gc.get(rl)
+                if mx is None:
+                    mx = max(sc.max_gaps(rl, "read"), sc.max_gaps(rl, "ref"))
+                    gc[rl] = mx
+                lt10 += mx < 10
+                lt5 += mx < 5
+                lt3 += mx < 3
+            self.last_metrics.update(dp_mate_lt10=lt10, dp_mate_lt5=lt5,
+                                     dp_mate_lt3=lt3)
         if jobs:
             self._run_rescue(jobs, st1, st2, b1, b2)
             # recompute scored/combos for affected reads
@@ -577,6 +601,15 @@ class PairedAligner:
             ref_m[ci, :width] = joined[wl : wl + width]
             wlens[ci] = width
             metas.append((which, i, opp_fw, wl))
+        if self.dp_log_opp is not None:
+            # --log-dp-opp: opposite-mate DP problems in the same
+            # read<TAB>window format as --dp-log (ref: bt2_dp.cpp replay)
+            for ci in range(C):
+                if metas[ci] is None:
+                    continue
+                self.dp_log_opp.write(
+                    dna.decode(rd_m[ci, : int(clens[ci])]) + "\t"
+                    + dna.decode(ref_m[ci, : int(wlens[ci])]) + "\n")
         # on CUDA the unpaired rect DP's side stream (rect_stream): on the
         # main stream the copies would wait for both mates' fused batches
         with up.rect_stream():
@@ -636,7 +669,8 @@ class PairedAligner:
                 continue
             msc = int(st1.minsc[i]) + int(st2.minsc[i])
             per = int(st1.perfect[i]) + int(st2.perfect[i])
-            mq = mapq_fn(MAPQ_V)(tot, sec, msc, per, self.up.sc.monotone)
+            mq = mapq_fn(self.up.mapq_v)(tot, sec, msc, per,
+                                         self.up.sc.monotone)
             for r, other, m1 in ((r1, r2, True), (r2, r1, False)):
                 r.mapq = mq
                 r.yt = "CP"
@@ -658,8 +692,8 @@ class PairedAligner:
                 # mates share it (ref: unique.h mapq s.paired() branch)
                 msc = int(st1.minsc[i]) + int(st2.minsc[i])
                 per = int(st1.perfect[i]) + int(st2.perfect[i])
-                mq = mapq_fn(MAPQ_V)(r1.score + r2.score, None, msc, per,
-                                     self.up.sc.monotone)
+                mq = mapq_fn(self.up.mapq_v)(r1.score + r2.score, None,
+                                             msc, per, self.up.sc.monotone)
                 for r, m1 in ((r1, True), (r2, False)):
                     r.yt = "DP"
                     r.paired = True

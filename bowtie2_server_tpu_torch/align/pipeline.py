@@ -38,6 +38,7 @@ history).
 from __future__ import annotations
 
 import contextlib
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -81,7 +82,6 @@ def band_for(maxhalf: int) -> int:
 ALL_HITS = 1 << 30
 _RESOLVE_CHUNK = 65536      # per-device-call enumeration chunk
 _FUSED_KMAX = 1024          # largest -k served by the fused device path
-MAPQ_V = 2                  # MAPQ model (ref: bt2_search.cpp:513 mapqv=2)
 
 
 class BigCapacityError(RuntimeError):
@@ -394,7 +394,7 @@ class LazyRecs:
     paired aligner, record-by-record SAM emission)."""
 
     __slots__ = ("batch", "filtered", "qc", "_cache", "soa", "B", "ym_mask",
-                 "yf_codes")
+                 "metrics", "yf_codes")
 
     def __init__(self, batch, filtered, qc_fail, yf_codes=None):
         self.B = len(batch.names)
@@ -407,6 +407,7 @@ class LazyRecs:
         self._cache: dict[int, AlnRec] = {}
         self.soa: FastSoA | None = None
         self.ym_mask = None   # per-read repetitive flag under -M (YM:i)
+        self.metrics = {}     # per-batch PerfMetrics counters (--met TSV)
 
     def cache_items(self):
         """(i, rec) pairs materialized so far (slow-path records)."""
@@ -482,6 +483,13 @@ class ConcatRecs:
         for p in self.parts:
             yield from p
 
+    def n_aligned(self) -> int:
+        return sum(p.n_aligned() if hasattr(p, "n_aligned")
+                   else sum(r.aligned for r in p) for p in self.parts)
+
+    def n_concordant(self) -> int:
+        return sum(p.n_concordant() for p in self.parts)
+
 
 def revcomp_batch(seqs, quals, lens):
     """Vectorized per-row reverse complement respecting lengths."""
@@ -537,6 +545,19 @@ class UnpairedAligner:
                                    self.pol, self.sw_cfg, self.band,
                                    self.device, mesh=mesh)
         self._rect_stream = None   # CUDA stream of the rect DPs (rect_stream)
+        self.dp_log = None   # file handle: log DP problems (ref: --dp-log)
+        self.timing = None   # dict: stage wall-clock accumulation (ref: -t)
+        # cumulative backtrace counters for the --met TSV (ref: SSEMetrics
+        # bt/btfail/btsucc/btcell, aligner_sw_common.h:292-295; these count
+        # the host traceback passes: attempts, rejects, commits, and path
+        # cells walked)
+        self.bt_ctr = {"bt": 0, "btfail": 0, "btsucc": 0, "btcell": 0}
+        # per-read-length gap-budget cache for tallyGappedDp (_build_state)
+        self._gapclass_cache: dict[int, int] = {}
+        self.want_met = False   # --met consumer attached: collect the
+        #                         DP-shape columns (host numpy, ~1 ms/batch)
+        self.qc_filter = False  # --qc-filter: honor qseq QC flags
+        self.mapq_v = 2      # --mapq-v (ref: bt2_search.cpp:513 mapqv=2)
 
     # ---- seed schedule (ref: bt2_search.cpp:3848-3870, aligner_seed.cpp:498)
 
@@ -657,6 +678,8 @@ class UnpairedAligner:
         filtered = len_bad | n_bad | sc_bad
         yf_codes = np.where(len_bad, 0,
                             np.where(n_bad, 1, np.where(sc_bad, 2, 3)))
+        if self.qc_filter and batch.qc_fail is not None:
+            filtered = filtered | batch.qc_fail
         active = ~filtered
         h = self.candgen.dispatch(
             batch.seqs, batch.quals, lens,
@@ -673,7 +696,15 @@ class UnpairedAligner:
             _, batch, boost, seed_skip = handle
             return self._collect_host(batch, boost, seed_skip)
         _, batch, boost, seed_skip, h, meta = handle
+        tf = time.time()
         res = self.candgen.fetch(h)
+        if self.timing is not None:
+            # -t on the fused path: the wall from the fetch call until the
+            # batch's output is on the host (fetch synchronises on the
+            # batch's event first, so this is the card's remaining time plus
+            # the copy, not the enqueue; ref: timer.h Timer blocks)
+            self.timing["device_fetch"] = self.timing.get(
+                "device_fetch", 0.0) + (time.time() - tf)
         if res.overflow:
             # capacity escalation: re-run the same batch with 2x, then
             # 4x set sizes (and 16x for a big index) before giving up to
@@ -707,7 +738,19 @@ class UnpairedAligner:
                     raise BigCapacityError(
                         "big-index candidate capacity exceeded at 16x")
                 return self._collect_host(batch, boost, seed_skip)
-        return self._build_state(batch, res, meta)
+        st = self._build_state(batch, res, meta)
+        if self.dp_log is not None:
+            # --dp-log on the fused path: the DP problems are the banded
+            # windows (ref: the --dp-log problem dump, bt2_search.cpp:3117
+            # -> bt2_dp.cpp replay)
+            for ci in range(len(st.cands)):
+                fi = st.fin_info[ci]
+                if fi is None:
+                    continue
+                rd, _, rl = st.read_arrays(ci)
+                self.dp_log.write(dna.decode(rd[:rl]) + "\t"
+                                  + dna.decode(fi[3]) + "\n")
+        return st
 
     def _build_state(self, batch: ReadBatch, res, meta):
         """Package fused-pipeline outputs as the per-batch state consumed by
@@ -716,7 +759,9 @@ class UnpairedAligner:
         B, L = batch.seqs.shape
         lens = meta["lens"]
         filtered = meta["filtered"]
-        recs = LazyRecs(batch, filtered, None, meta.get("yf_codes"))
+        qc = (batch.qc_fail if self.qc_filter and batch.qc_fail is not None
+              else None)
+        recs = LazyRecs(batch, filtered, qc, meta.get("yf_codes"))
 
         fw_seqs, fw_quals = batch.seqs, batch.quals
         # rc/penalty rows are slow-path-only and PER-READ lazy: the whole-
@@ -754,6 +799,49 @@ class UnpairedAligner:
             cnts = np.bincount(res.c_read[okc], minlength=B)
             recs.ym_mask = ((cnts > self.pol.mhits)
                             | (res.exact_mult > self.pol.mhits))
+
+        # --met TSV counters from the packed output's counter row (ref: the
+        # PerfMetrics merge, bt2_search.cpp:3229-3248): SeedSearch = seed
+        # lookups, NRange = hit ranges, NElt = resolved elements, DPEx =
+        # interior banded problems, Ungapped = device-certified winners
+        ctr = res.counters.sum(axis=0)
+        n_act = int((~filtered).sum())
+        recs.metrics = dict(
+            seed_searches=int(ctr[5]), n_range=int(ctr[4]),
+            n_elt=int(ctr[1]), dp_ex=int(ctr[6]),
+            ungapped_succ=int(ctr[7]),
+            ungapped_fail=max(0, int(ctr[6]) - int(ctr[7])),
+            exact_attempts=2 * n_act,
+            exact_succ=int((res.exact_mult > 0).sum()))
+        # DP problem-shape columns (ref: tallyGappedDp,
+        # aligner_sw_common.h:246-251, classed by the most gaps the score
+        # budget allows, and SSEMetrics col/cell and dpsucc/dpfail,
+        # bt2_search.cpp:2440-2480): each interior candidate is one banded
+        # problem of rl columns x band-width cells. Host numpy over the
+        # candidate arrays, only when a --met consumer is attached
+        if self.want_met and len(res.c_read):
+            intc = res.c_interior
+            dpl = lens[res.c_read[intc]].astype(np.int64)
+            if dpl.size:
+                gc = self._gapclass_cache
+                uls, inv = np.unique(dpl, return_inverse=True)
+                mxs = np.empty(len(uls), np.int64)
+                for ui, rl_u in enumerate(uls):
+                    v = gc.get(int(rl_u))
+                    if v is None:
+                        v = max(self.sc.max_gaps(int(rl_u), "read"),
+                                self.sc.max_gaps(int(rl_u), "ref"))
+                        gc[int(rl_u)] = v
+                    mxs[ui] = v
+                mx = mxs[inv]
+                ncols = int(dpl.sum())
+                succ = int((res.c_score[intc]
+                            >= meta["minsc"][res.c_read[intc]]).sum())
+                recs.metrics.update(
+                    dp_lt10=int((mx < 10).sum()), dp_lt5=int((mx < 5).sum()),
+                    dp_lt3=int((mx < 3).sum()), dp_col=ncols,
+                    dp_cell=ncols * self.band, dp_succ=succ,
+                    dp_fail=int(dpl.size) - succ)
 
         cands = ArrayCands(res.c_read, res.c_fw, res.c_diag)
         best = np.where(res.c_interior, res.c_score, NEG_INF).astype(np.int64)
@@ -974,7 +1062,7 @@ class UnpairedAligner:
         ref_id, ref_off, _ = self.idx.joined_to_ref(jp)
         sec_eff = np.where(has_sec, res.sec_sc[w],
                            st.perfect[w]).astype(np.int64)
-        mapqs = mapq_batch(MAPQ_V, score, sec_eff, has_sec | exact_rule,
+        mapqs = mapq_batch(self.mapq_v, score, sec_eff, has_sec | exact_rule,
                            st.minsc[w], st.perfect[w], self.sc.monotone)
 
         for t in np.nonzero(~ungapped)[0]:
@@ -1094,12 +1182,20 @@ class UnpairedAligner:
         f = self._filters(batch)
         nceil, minsc, perfect = f["nceil"], f["minsc"], f["perfect"]
         filtered = f["len_bad"] | f["n_bad"] | f["sc_bad"]
+        if self.qc_filter and batch.qc_fail is not None:
+            filtered = filtered | batch.qc_fail
+            for i in np.nonzero(batch.qc_fail)[0]:
+                recs[i].yf = "QC"
         for i in np.nonzero(filtered)[0]:
             recs[i].filtered = True
-            # YF reason priority LN > NS > SC (ref: AlnFlags::printYF,
+            # YF reason priority LN > NS > SC > QC (ref: AlnFlags::printYF,
             # aligner_result.cpp:1095-1100)
-            recs[i].yf = ("LN" if f["len_bad"][i] else
-                          "NS" if f["n_bad"][i] else "SC")
+            if f["len_bad"][i]:
+                recs[i].yf = "LN"
+            elif f["n_bad"][i]:
+                recs[i].yf = "NS"
+            elif f["sc_bad"][i]:
+                recs[i].yf = "SC"
 
         exact_mult = np.zeros(B, np.int64)  # exact hits (for secbest)
         empty_state = SimpleNamespace(
@@ -1357,6 +1453,7 @@ class UnpairedAligner:
             return (seqs[i, :rl],
                     mmtab[np.clip(quals[i, :rl], 0, 255)].astype(np.int32), rl)
 
+        t_dp = time.time()
         if band_ids:
             nb = len(band_ids)
             rd_m = np.full((nb, L), 5, np.uint8)
@@ -1410,6 +1507,16 @@ class UnpairedAligner:
                 end_joined[ci] = wl + int(r_bj[ri])
                 fin_info[ci] = ("rectr", int(r_bi[ri]), int(r_bj[ri]),
                                 ref_m[ri, : wr - wl], (rid, wl))
+        if self.timing is not None:
+            self.timing["dp"] = self.timing.get("dp", 0.0) + \
+                (time.time() - t_dp)
+        if self.dp_log is not None:
+            for ci in range(C):
+                if fin_info[ci] is None:
+                    continue
+                rd, _, rl = read_arrays(ci)
+                self.dp_log.write(dna.decode(rd[:rl]) + "\t"
+                                  + dna.decode(fin_info[ci][3]) + "\n")
 
         # -- the per-batch state --
         by_read: dict[int, list[int]] = {}
@@ -1556,6 +1663,7 @@ class UnpairedAligner:
         (run straddle or N-ceiling), so the caller can try the next one."""
         cfg = self.sw_cfg
         read_start, read_end = 0, rl
+        tb = False   # a real traceback pass ran (counts toward bt metrics)
         if kind == "band":
             # fast path: pure-diagonal alignment along band offset bk
             if not cfg.local and bi == rl - 1 and \
@@ -1563,6 +1671,7 @@ class UnpairedAligner:
                 edits = edits_from_ungapped(rd[:rl], window, bk)
                 start_col = bk
             else:
+                tb = True
                 edits, start_col, read_start = banded_traceback(
                     rd[:rl], mm, window, cfg, bi, bk, K=self.band)
                 read_end = bi + 1
@@ -1572,13 +1681,22 @@ class UnpairedAligner:
                     ungapped_score(rd, mm, window, start_col, cfg) == bsc:
                 edits = edits_from_ungapped(rd[:rl], window, start_col)
             else:
+                tb = True
                 edits, start_col, read_start = rect_traceback(
                     rd[:rl], mm, window, cfg, bi, bk)
                 read_end = bi + 1
+        if tb:
+            bc = self.bt_ctr
+            bc["bt"] += 1
+            # path cells = read rows walked + gap steps (our traceback is
+            # single-pass, so the path length IS the cells-visited count)
+            bc["btcell"] += (read_end - read_start) + len(edits)
         stats = cigar_md_stats(rl, edits, read_start, read_end)
         xn = int((window[max(0, start_col):start_col + stats["ref_span"]]
                   > 3).sum())
         if xn > nc:
+            if tb:
+                self.bt_ctr["btfail"] += 1
             return False  # too many reference Ns (ref: nCeil / maxns)
         if kind == "rectr":
             # reference-space rectangle (N-leeway framing, _rect_frame):
@@ -1588,6 +1706,8 @@ class UnpairedAligner:
             pos = wl + start_col
             if pos < 0 or pos + stats["ref_span"] > int(
                     self.idx.ref_lens[rid]):
+                if tb:
+                    self.bt_ctr["btfail"] += 1
                 return False
             ref_id = np.array([rid])
             ref_off = np.array([pos])
@@ -1596,6 +1716,8 @@ class UnpairedAligner:
             ref_id, ref_off, valid = self.idx.joined_to_ref(
                 np.array([joined_pos]), aln_len=stats["ref_span"] - xn)
             if not valid[0]:
+                if tb:
+                    self.bt_ctr["btfail"] += 1
                 return False  # straddles a run boundary: reject
         rec.aligned = True
         rec.fw = bool(is_fw)
@@ -1608,10 +1730,12 @@ class UnpairedAligner:
         rec.nm, rec.xm, rec.xo, rec.xg = (
             stats["nm"], stats["xm"], stats["xo"], stats["xg"])
         rec.xn = xn
-        rec.mapq = mapq_fn(MAPQ_V)(bsc, sec, msc, per, self.sc.monotone)
+        rec.mapq = mapq_fn(self.mapq_v)(bsc, sec, msc, per, self.sc.monotone)
         if rec.fw:
             rec.seq, rec.qual = rec.orig_seq, rec.orig_qual
         else:
             rec.seq = dna.revcomp_ascii(rec.orig_seq)
             rec.qual = rec.orig_qual[::-1]
+        if tb:
+            self.bt_ctr["btsucc"] += 1
         return True

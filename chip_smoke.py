@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py [--paths]
 
 (--paths: only phases 1, 2, 4, SR, BIG and PE, for an A/B of two
-checkouts on one card.)
+checkouts on one card; --opts: only phases 1, 2 and OPTS.)
 
 It imports nothing of JAX. Phases, in order; any failure exits non-zero and
 prints no result line:
@@ -137,7 +137,25 @@ prints no result line:
      and 512 pairs (SAM lines);
   6. the entry point: `python -m bowtie2_server_tpu_torch align` on 10k reads
      (-U, and with -N 1 -L 20, and with -k 5) and on 5000 pairs (-1/-2)
-     must write well-formed SAM.
+     must write well-formed SAM;
+  OPTS. the rest of the align command line and the dp subcommand, through
+     the port's `__main__.main` in process (launch counters zeroed just
+     before each run and read just after): `align --very-sensitive` on
+     32768 reads of phase 4's workload at --batch 32768 and
+     `--very-fast-local` on 8192 of them (the host traceback of every
+     local winner bounds it, as phase 4's local batch): reads/s with index
+     load, FASTQ parse and SAM write, placement at the planted origin, the
+     banded and rect kernels' launches (a warm-up run of 1024 reads first
+     builds each preset's k-mer table); then CUDA against CPU, every
+     output with zero differing lines: `--dpad 32` and `--dpad 64` on 2048
+     reads (sw_banded_wide must launch), `-b` on a BAM the port's BamWriter
+     wrote, with `--preserve-tags --output-bam` (BAM compared after
+     decoding), `-f --trim-to 3:80 --un --al`, `--tab6 --xeq --rg-id --rg`
+     with `--met-file --met-read --dp-log -t` (the TSV's counter columns
+     equal, its time and memory columns excluded), 1024 pairs on phase
+     PE's genome under `--dovetail --no-contain --no-overlap --un-conc
+     --al-conc`, and `dp` on the first 1024 logged problems (sw must
+     launch).
 The line before the last is a JSON object {"kernels": [...]}, with each
 kernel's bound (bench_rect.bound: the larger of its int32 operations over
 the probe's ceiling and its bytes over HBM3's 3.35 TB/s; a cell counts
@@ -149,6 +167,7 @@ bench_fm.resolve_bound's count) and share of bound; the last line is
 """
 import argparse
 import contextlib
+import io
 import json
 import re
 import subprocess
@@ -249,6 +268,20 @@ SHARE_SYMBOLS = {"banded": "::banded_kernel<",
                  "rect": "::rect_", "fm_walk": "fm_walk_kernel",
                  "fm_lf_step": "fm_lf_step_kernel",
                  "fm_resolve": "fm_resolve_kernel"}
+# phase OPTS: the rest of the align command line through the port's CLI in
+# process. Full width: --very-sensitive on BATCH reads of phase 4's
+# workload at --batch BATCH, --very-fast-local on OPTS_LOCAL_READS at the
+# same --batch: the host traceback of every local winner bounds it (BATCH
+# reads took 104.3 s, 313.8 reads/s, on an H100 80GB HBM3 at 700 W), so it
+# is cut as phase 4's local batch is; CUDA against CPU: OPTS_PARITY reads
+# (the formats, outputs and --dpad runs), OPTS_PAIRS pairs, dp on the first
+# OPTS_DP_PROBLEMS logged problems; the --met TSV compared without its time
+# and memory columns
+OPTS_LOCAL_READS = LOCAL_BATCH
+OPTS_PARITY = 2048
+OPTS_PAIRS = 1024
+OPTS_DP_PROBLEMS = 1024
+OPTS_NOT_COUNTERS = {"Time", "MemPeak", "EbwtMemPeak", "ResolveMemPeak"}
 # kernels line: name -> (source in the port, the TPU kernel it replaces)
 KERNEL_SOURCES = {
     "sw_banded": ("sw_banded.cu", "bowtie2_server_tpu/ops/sw_banded.py:240"),
@@ -2059,6 +2092,247 @@ def phase_cli_paired(pbase: Path, chroms, n=5000, device="cuda"):
         f"proper pairs; {summ}")
 
 
+def opts_main(argv, device: str):
+    """The port's CLI (`__main__.main`) in process on `device`: (kernel
+    launches of the run, zeroed just before and read just after, and
+    seconds)."""
+    import torch
+    from bowtie2_server_tpu_torch.__main__ import main as cli_main
+    from bowtie2_server_tpu_torch.ops import kernels
+    kernels.reset_launches()
+    t0 = time.time()
+    cli_main([*argv, "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return dict(kernels.LAUNCHES), time.time() - t0
+
+
+def sam_records(path: Path):
+    """SAM record lines (the header aside) of a file."""
+    return [ln for ln in path.read_text().splitlines()
+            if not ln.startswith("@")]
+
+
+def sam_origin_fraction(lines, origin, local: bool) -> float:
+    """Fraction of reads (one primary record each, in input order) at their
+    planted origin and strand; local: the start inside the read span."""
+    cid, start, fw = origin
+    recs = [ln.split("\t", 4) for ln in lines]
+    if len(recs) != len(cid):
+        raise RuntimeError(f"{len(recs)} SAM records for {len(cid)} reads")
+    ok = 0
+    for f, c, s, w in zip(recs, cid, start, fw):
+        flag, pos = int(f[1]), int(f[3]) - 1
+        hit = (not flag & 4 and f[2] == f"ctg{c}"
+               and ((flag & 16) == 0) == bool(w))
+        ok += hit and (s <= pos < s + READ_LEN if local else pos == s)
+    return ok / len(recs)
+
+
+def opts_parity(label, argv, outputs=("out.sam",)):
+    """One command line on the card and on the CPU, each run in a directory
+    of its own under WORK/opts (relative output names land there): every
+    output equal (SAM with @PG aside; BAM after decoding its BGZF blocks).
+    Returns (the card run's launches, {device: its directory})."""
+    import os
+    from bowtie2_server_tpu_torch.io.bam import _bgzf_blocks
+    got, dirs = {}, {}
+    here = os.getcwd()
+    for dev in ("cuda", "cpu"):
+        d = WORK / "opts" / re.sub(r"\W+", "_", label).strip("_") / dev
+        d.mkdir(parents=True, exist_ok=True)
+        dirs[dev] = d
+        os.chdir(d)
+        try:
+            launches, sec = opts_main(argv, dev)
+        finally:
+            os.chdir(here)
+        if dev == "cuda":
+            card = launches, sec
+        got[dev] = {}
+        for o in outputs:
+            if o.endswith(".bam"):
+                with open(d / o, "rb") as fh:
+                    got[dev][o] = b"".join(_bgzf_blocks(fh))
+            else:
+                got[dev][o] = [ln for ln in (d / o).read_text().splitlines()
+                               if not ln.startswith("@PG")]
+    for o in outputs:
+        a, b = got["cuda"][o], got["cpu"][o]
+        if a != b:
+            n = (f"{sum(x != y for x, y in zip(a, b))} of {len(a)} lines"
+                 if isinstance(a, list) else "the decoded bytes")
+            raise RuntimeError(f"OPTS {label}: {o} differs between CUDA and "
+                               f"CPU ({n})")
+        if not a:
+            raise RuntimeError(f"OPTS {label}: {o} is empty")
+    unit = "decoded bytes" if outputs[0].endswith(".bam") else "lines"
+    log(f"OPTS {label}: CUDA equals CPU, zero differing lines in "
+        f"{', '.join(outputs)} ({len(got['cuda'][outputs[0]])} {unit} in "
+        f"{outputs[0]}); card run {card[1]:.1f} s, launches {card[0]}")
+    return card[0], dirs
+
+
+def write_opts_inputs(d: Path, contigs):
+    """OPTS_PARITY reads of phase 4's workload (every 50th replaced by
+    random bases, so --un gets reads) as FASTQ, FASTA, tab6, and BAM
+    written by the port's BamWriter (unaligned records with tags, every 4th
+    on the reverse strand)."""
+    from bowtie2_server_tpu_torch.io.bam import BamWriter
+    names, seqs, quals, _ = make_reads(62, contigs, OPTS_PARITY)
+    rng = np.random.default_rng(64)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    for i in range(0, len(seqs), 50):
+        seqs[i] = bases[rng.integers(0, 4, READ_LEN)].tobytes()
+    d.mkdir(parents=True, exist_ok=True)
+    write_fastq(d / "reads.fq", names, seqs, quals)
+    (d / "reads.fa").write_text("".join(
+        f">{n}\n{s.decode()}\n" for n, s in zip(names, seqs)))
+    (d / "reads.tab").write_text("".join(
+        f"{n}\t{s.decode()}\t{q.decode()}\n"
+        for n, s, q in zip(names, seqs, quals)))
+    comp = str.maketrans("ACGTN", "TGCAN")
+    with open(d / "reads.bam", "wb") as fh:
+        w = BamWriter(fh, "@HD\tVN:1.0\tSO:unsorted\n", [], [])
+        for i, (n, s, q) in enumerate(zip(names, seqs, quals)):
+            s, q, flag = s.decode(), q.decode(), 4
+            if i % 4 == 1:
+                s, q, flag = s[::-1].translate(comp), q[::-1], 20
+            w.write_sam_line(f"{n}\t{flag}\t*\t0\t0\t*\t*\t0\t0\t{s}\t{q}"
+                             f"\tRG:Z:lane{i % 3}\tXI:i:{i}")
+        w.close()
+    return {k: str(d / k) for k in ("reads.fq", "reads.fa", "reads.tab",
+                                    "reads.bam")}
+
+
+def tsv_counters(path: Path):
+    """The --met TSV's columns other than OPTS_NOT_COUNTERS, row by row."""
+    from bowtie2_server_tpu_torch.io.metrics import PERF_COLUMNS
+    rows = [ln.split("\t") for ln in path.read_text().splitlines()]
+    if rows[0] != list(PERF_COLUMNS) or len(rows) < 2:
+        raise RuntimeError(f"{path}: not a --met TSV with a data row")
+    keep = [k for k, c in enumerate(PERF_COLUMNS)
+            if c not in OPTS_NOT_COUNTERS]
+    return [[r[k] for k in keep] for r in rows[1:]]
+
+
+def phase_opts(base: Path, contigs, pbase: Path, chroms):
+    """Phase OPTS: the rest of the align command line and the dp subcommand
+    on the card, through the port's CLI in process. Returns the path's
+    numbers for the paths line."""
+    t_phase = time.time()
+    d = WORK / "opts"
+    res = {}
+    # full width: phase 4's genome, 32768 reads at the main path's batch
+    d.mkdir(parents=True, exist_ok=True)
+    names, seqs, quals, origin = make_reads(61, contigs, BATCH)
+    write_fastq(d / "full.fq", names, seqs, quals)
+    for preset, n, local in (("--very-sensitive", BATCH, False),
+                             ("--very-fast-local", OPTS_LOCAL_READS, True)):
+        fq = d / "full.fq"
+        if n < BATCH:
+            fq = d / "full_local.fq"
+            write_fastq(fq, names[:n], seqs[:n], quals[:n])
+        # warm-up: the preset's k-mer table is built and cached on disk
+        # under the index base (its seed length differs from phase 4's)
+        write_fastq(d / "warm.fq", names[:1024], seqs[:1024], quals[:1024])
+        opts_main(["align", "-x", str(base), "-U", str(d / "warm.fq"), "-S",
+                   str(d / "warm.sam"), preset], "cuda")
+        launches, sec = opts_main(
+            ["align", "-x", str(base), "-U", str(fq), "-S",
+             str(d / "full.sam"), "--batch", str(BATCH), preset], "cuda")
+        frac = sam_origin_fraction(sam_records(d / "full.sam"),
+                                   tuple(o[:n] for o in origin), local)
+        log(f"OPTS align {preset}: {n} reads of {READ_LEN} bp at --batch "
+            f"{BATCH}: {n / sec:.1f} reads/s (index load, FASTQ parse and "
+            f"SAM write included); at planted origin and strand {frac:.4f}; "
+            f"launches sw_banded {launches['sw_banded']}, sw_banded_general "
+            f"{launches['sw_banded_general']}, sw {launches['sw']}; "
+            f"{card_line()}")
+        lim = ORIGIN_MIN_LOCAL if local else ORIGIN_MIN_E2E
+        if frac < lim:
+            raise RuntimeError(f"OPTS {preset}: origin fraction {frac:.4f} "
+                               f"< {lim}")
+        if launches["sw_banded"] == 0:
+            raise RuntimeError(f"OPTS {preset}: sw_banded never launched")
+        res[preset.lstrip("-")] = dict(reads=n, reads_per_s=n / sec,
+                                       origin=frac, launches=launches)
+    f = write_opts_inputs(d / "in", contigs)
+    x = ["align", "-x", str(base)]
+    # the wide-band kernel from the command line
+    for dpad in WIDE_MAXHALVES:
+        launches, _ = opts_parity(f"--dpad {dpad}", [
+            *x, "-U", f["reads.fq"], "--dpad", str(dpad), "-S", "out.sam"])
+        if launches["sw_banded_wide"] == 0:
+            raise RuntimeError(f"OPTS: align --dpad {dpad} never launched "
+                               f"sw_banded_wide")
+        res[f"dpad{dpad}_wide_launches"] = launches["sw_banded_wide"]
+    # input formats and outputs; the last also writes the --met TSV, the DP
+    # problems and -t's stage times
+    opts_parity("-b", [*x, "-b", "-U", f["reads.bam"], "-S", "out.sam"])
+    opts_parity("-b --preserve-tags --output-bam", [
+        *x, "-b", "-U", f["reads.bam"], "--preserve-tags", "--output-bam",
+        "-S", "out.bam"], outputs=("out.bam",))
+    opts_parity("-f --trim-to 3:80 --un --al", [
+        *x, "-f", "-U", f["reads.fa"], "--trim-to", "3:80", "--un", "un.fq",
+        "--al", "al.fq", "-S", "out.sam"],
+        outputs=("out.sam", "un.fq", "al.fq"))
+    _, met_dirs = opts_parity(
+        "--tab6 --xeq --rg-id x --rg SM:y --met-file --dp-log -t "
+        "--batch 512", [
+            *x, "--tab6", f["reads.tab"], "--xeq", "--rg-id", "x", "--rg",
+            "SM:y", "--met-file", "met.tsv", "--met-read", "--dp-log",
+            "dp.txt", "-t", "--batch", "512", "-S", "out.sam"],
+        outputs=("out.sam", "dp.txt"))
+    cuda_met = tsv_counters(met_dirs["cuda"] / "met.tsv")
+    if cuda_met != tsv_counters(met_dirs["cpu"] / "met.tsv"):
+        raise RuntimeError("OPTS: the --met TSV's counter columns differ "
+                           "between CUDA and CPU")
+    log(f"OPTS --met TSV: {len(cuda_met)} rows, counter columns equal CUDA "
+        f"and CPU (columns excluded: {', '.join(sorted(OPTS_NOT_COUNTERS))}"
+        f": time and memory)")
+    # paired options on phase PE's genome
+    pn, s1, s2, pq, _ = make_pairs(63, chroms, OPTS_PAIRS)
+    rng = np.random.default_rng(65)     # every 50th mate 2 random: the pair
+    bases = np.frombuffer(b"ACGT", np.uint8)    # goes to --un-conc
+    for i in range(0, len(s2), 50):
+        s2[i] = bases[rng.integers(0, 4, PAIR_LEN)].tobytes()
+    write_fastq(d / "in" / "m1.fq", pn, s1, pq)
+    write_fastq(d / "in" / "m2.fq", pn, s2, pq)
+    opts_parity("paired --dovetail --no-contain --no-overlap --un-conc "
+                "--al-conc", [
+                    "align", "-x", str(pbase), "-1", str(d / "in" / "m1.fq"),
+                    "-2", str(d / "in" / "m2.fq"), "--dovetail",
+                    "--no-contain", "--no-overlap", "--un-conc", "unc%.fq",
+                    "--al-conc", "alc%.fq", "-S", "out.sam"],
+                outputs=("out.sam", "unc1.fq", "unc2.fq", "alc1.fq",
+                         "alc2.fq"))
+    # dp on the problems the card run logged
+    rows = (met_dirs["cuda"] / "dp.txt").read_text().splitlines()
+    rows = rows[:OPTS_DP_PROBLEMS]
+    (d / "dp.txt").write_text("".join(r + "\n" for r in rows))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            launches, sec = opts_main(["dp", str(d / "dp.txt")], dev)
+        out[dev] = buf.getvalue().splitlines()
+        if dev == "cuda":
+            dp_launches, dp_sec = launches, sec
+    if out["cuda"] != out["cpu"] or len(out["cuda"]) != len(rows):
+        n = sum(a != b for a, b in zip(out["cuda"], out["cpu"]))
+        raise RuntimeError(f"OPTS dp: {n} of {len(rows)} lines differ "
+                           f"between CUDA and CPU")
+    if dp_launches["sw"] == 0:
+        raise RuntimeError("OPTS dp --device cuda never launched sw")
+    log(f"OPTS dp: {len(rows)} logged problems, CUDA equals CPU, zero "
+        f"differing lines; card run {dp_sec:.1f} s, launches {dp_launches}")
+    res["dp_sw_launches"] = dp_launches["sw"]
+    res["seconds"] = time.time() - t_phase
+    log(f"phase OPTS in {res['seconds']:.1f} s on {card_line()}")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--paths", action="store_true", help=(
@@ -2066,7 +2340,10 @@ def main(argv=None):
         "is their "
         "JSON. To compare two checkouts in turns on one card, run a copy "
         "of this script placed in the root of each"))
-    paths_only = ap.parse_args(argv).paths
+    ap.add_argument("--opts", action="store_true", help=(
+        "only phases 1, 2 and OPTS (the genomes built first)"))
+    cli = ap.parse_args(argv)
+    paths_only = cli.paths
     card = phase_env()
     import torch
     from bowtie2_server_tpu_torch.index.build import build_index
@@ -2088,6 +2365,10 @@ def main(argv=None):
     pidx = FmIndex.load(pbase)
     log(f"paired genome {pidx.n} bp in {len(chroms)} chromosomes, index "
         f"built in {time.time() - t0:.1f} s")
+    if cli.opts:
+        log(json.dumps({"paths": {"opts": phase_opts(base, contigs, pbase,
+                                                     chroms)}}))
+        return
     if paths_only:
         _, main_res = phase_main(idx, contigs, local=False)
         _, sr_res, _ = phase_short(idx, contigs)
@@ -2128,6 +2409,7 @@ def main(argv=None):
     phase_cli(base, contigs)
     phase_cli_opts(base, contigs)
     phase_cli_paired(pbase, chroms)
+    opts_res = phase_opts(base, contigs, pbase, chroms)
     # each kernel's launches on its path: the unpaired main path for the
     # banded and rectangle kernels (the paired path is checked above), the
     # short-read path for the FM kernels, the --dpad 32 and --dpad 64
@@ -2145,7 +2427,8 @@ def main(argv=None):
     log(f"launches on the paired path: {pe_launches}")
     log(json.dumps({"paths": {"unpaired": main_res, "paired": pe_res,
                               "short": sr_res, "n1": n1_res,
-                              "big": big_res, "server": srv_res}}))
+                              "big": big_res, "server": srv_res,
+                              "opts": opts_res}}))
     # no PyTorch call computes any of these functions (a DP, the probe's
     # chain, an FM walk, a walk-left): library_ms is null
     kern = [dict(name=name, route="cuda",

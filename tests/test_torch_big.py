@@ -268,15 +268,33 @@ def _capped_fetch(monkeypatch, cap):
     return fetched
 
 
-def test_big_halving_equals_unsplit(genome, jax_big_run, monkeypatch):
+@pytest.fixture(scope="module")
+def halved(genome, jax_big_run, jax_big_pairs):
+    """The port's runs of jax_big_run's reads and of jax_big_pairs' pairs
+    with CandGen.fetch capped (_capped_fetch at 150 reads and 32 pairs):
+    ((records, fetches) unpaired, (pair records, fetches))."""
+    _, _, tidx = genome
+    seqs, names, quals, _, _ = jax_big_run
+    pnames, s1, q1, s2, q2, _ = jax_big_pairs
+    with pytest.MonkeyPatch.context() as mp:
+        fetched = _capped_fetch(mp, 150)
+        al = tpipe.UnpairedAligner(tidx, device="cpu", force_big=True)
+        recs = al.align_batch(make_batch(names, seqs, quals))
+    with pytest.MonkeyPatch.context() as mp:
+        pfetched = _capped_fetch(mp, 32)
+        tpal = tpaired.PairedAligner(tidx, device="cpu", force_big=True)
+        tp = tpal.align_batch(make_batch(pnames, s1, q1),
+                              make_batch(pnames, s2, q2))
+    return (recs, fetched), (tp, pfetched)
+
+
+def test_big_halving_equals_unsplit(genome, jax_big_run, halved):
     """A batch that still overflows at 16x is split in halves until the
     halves fit (300 -> 150 reads): the records equal the unsplit JAX
     run's."""
     _, _, tidx = genome
-    seqs, names, quals, _, want = jax_big_run
-    fetched = _capped_fetch(monkeypatch, 150)
-    al = tpipe.UnpairedAligner(tidx, device="cpu", force_big=True)
-    recs = al.align_batch(make_batch(names, seqs, quals))
+    want = jax_big_run[4]
+    recs, fetched = halved[0]
     assert isinstance(recs, tpipe.ConcatRecs) and len(recs) == 300
     assert _port_sam(recs, tidx.ref_names) == want
     # 300 reads at 1x, 2x, 4x and 16x, then the two halves at 1x
@@ -284,15 +302,32 @@ def test_big_halving_equals_unsplit(genome, jax_big_run, monkeypatch):
     assert fetched[3][1].NH > fetched[0][1].NH        # 16x over 1x
 
 
-def test_paired_big_halving(genome, jax_big_pairs, monkeypatch):
+def test_paired_big_halving(genome, jax_big_pairs, halved):
     """The pair batch splits the same way (64 -> 32 pairs): the records
     equal the unsplit JAX run's."""
     _, _, tidx = genome
-    names, s1, q1, s2, q2, want = jax_big_pairs
-    fetched = _capped_fetch(monkeypatch, 32)
-    tpal = tpaired.PairedAligner(tidx, device="cpu", force_big=True)
-    tp = tpal.align_batch(make_batch(names, s1, q1), make_batch(names, s2, q2))
+    want = jax_big_pairs[5]
+    tp, fetched = halved[1]
     assert isinstance(tp, tpipe.ConcatRecs) and len(tp) == 64
     assert [sam_record(r, tidx.ref_names) for pr in tp for r in pr] == want
     # mate 1 at 1x, 2x, 4x and 16x, then both mates of each half
     assert [n for n, _ in fetched] == [64] * 4 + [32] * 4
+
+
+def _flags(lines):
+    return [int(ln.split("\t")[1]) for ln in lines]
+
+
+@pytest.mark.parametrize("which", ["unpaired", "paired"])
+def test_halved_counts_equal_jax(jax_big_run, jax_big_pairs, halved, which):
+    """A halved batch's ConcatRecs counts as the JAX package's records of
+    the same reads do (from the flags of their SAM): n_aligned() of the
+    unpaired aligner's, n_concordant() of the pair aligner's."""
+    if which == "unpaired":
+        recs = halved[0][0]
+        want = sum(not f & 4 for f in _flags(jax_big_run[4]))
+        assert recs.n_aligned() == want > 250
+        return
+    tp = halved[1][0]
+    want = sum(bool(f & 2) for f in _flags(jax_big_pairs[5])[::2])
+    assert tp.n_concordant() == want > 48

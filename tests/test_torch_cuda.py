@@ -674,3 +674,76 @@ def test_server_cuda_equals_cpu(cuda_device, tmp_path):
     assert bodies["cuda"].endswith(b"@CO BT2SRV All Done\n")
     assert bodies["cuda"].count(b"@CO END READ\t") == len(lines)
     assert launches["sw_banded"] >= 2 and launches["sw"] >= 1
+
+
+def _cli_workload(tmp_path, n=1000):
+    """_workload's genome saved as an index and n of its reads as FASTQ."""
+    idx, names, seqs, quals = _workload(n=n)
+    idx.save(tmp_path / "genome")
+    with open(tmp_path / "reads.fq", "w") as f:
+        for nm, s, q in zip(names, seqs, quals):
+            f.write(f"@{nm}\n{s.decode()}\n+\n{q.decode()}\n")
+    return tmp_path / "genome", tmp_path / "reads.fq"
+
+
+def _cli(argv, out):
+    """The port's CLI in process: (kernel launches of the run, output)."""
+    from bowtie2_server_tpu_torch.__main__ import main
+    kernels.reset_launches()
+    main([*argv, *out])
+    torch.cuda.synchronize()
+    return dict(kernels.LAUNCHES)
+
+
+@pytest.mark.parametrize("dpad", [32, 64])
+def test_cli_dpad_wide_cuda_equals_cpu(dpad, cuda_device, tmp_path):
+    """align --dpad 32 and 64 (bands K = 256 and 512) from the command line
+    launch the wide-band kernel, and the card's SAM equals the CPU's."""
+    base, fq = _cli_workload(tmp_path)
+    sams = {}
+    for dev in ("cuda", "cpu"):
+        sam = tmp_path / f"{dev}.sam"
+        launches = _cli(["align", "-x", str(base), "-U", str(fq), "--dpad",
+                         str(dpad), "--device", dev], ["-S", str(sam)])
+        if dev == "cuda":
+            assert launches["sw_banded_wide"] >= 1
+        sams[dev] = [ln for ln in sam.read_text().splitlines()
+                     if not ln.startswith("@PG")]
+    assert sams["cuda"] == sams["cpu"]
+    assert len(sams["cuda"]) > 1000
+
+
+def test_dp_cuda_equals_cpu(cuda_device, tmp_path, capsys):
+    """dp on the problems --dp-log wrote: the same lines on the card (the
+    rect kernel launched) as on the CPU."""
+    base, fq = _cli_workload(tmp_path, n=300)
+    log = tmp_path / "dp.txt"
+    _cli(["align", "-x", str(base), "-U", str(fq), "--dp-log", str(log),
+          "--device", "cuda"], ["-S", str(tmp_path / "o.sam")])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        capsys.readouterr()
+        launches = _cli(["dp", str(log), "--device", dev], [])
+        out[dev] = capsys.readouterr().out.splitlines()
+        if dev == "cuda":
+            assert launches["sw"] == 1
+    assert out["cuda"] == out["cpu"]
+    assert len(out["cuda"]) == len(log.read_text().splitlines()) > 100
+
+
+def test_cli_cuda_without_card_fails(cuda_device, tmp_path):
+    """align --device cuda with CUDA hidden fails: it never carries on on
+    the CPU."""
+    import os
+    import subprocess
+    import sys
+    base, fq = _cli_workload(tmp_path, n=50)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run(
+        [sys.executable, "-m", "bowtie2_server_tpu_torch", "align", "-x",
+         str(base), "-U", str(fq), "-S", str(tmp_path / "o.sam"),
+         "--device", "cuda"], env=env, capture_output=True, text=True,
+        timeout=300, cwd=os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+    assert r.returncode != 0
+    assert "reads in" not in r.stderr

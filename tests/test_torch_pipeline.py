@@ -135,7 +135,7 @@ def test_wide_band_sam_identical(workloads):
     assert sum(r.aligned for r in trecs) > 0.95 * len(names)
 
 
-@pytest.mark.parametrize("mode", ["--end-to-end", "--local"])
+@pytest.mark.parametrize("mode", ["--end-to-end", "--local", "-M 5"])
 def test_cli_same_sam_as_jax_cli(workloads, tmp_path, monkeypatch, capsys,
                                  mode):
     from bowtie2_server_tpu.__main__ import main as jax_main
@@ -153,10 +153,10 @@ def test_cli_same_sam_as_jax_cli(workloads, tmp_path, monkeypatch, capsys,
     port_main(["build", str(fa), "idx"])   # the JAX CLI aligns on it too
     capsys.readouterr()
     jax_main(["align", "-x", "idx", "-U", "reads.fq", "-S", "jax.sam",
-              "--cpu", mode, "--seed", "3"])
+              "--cpu", *mode.split(), "--seed", "3"])
     j_err = capsys.readouterr().err
     port_main(["align", "-x", "idx", "-U", "reads.fq", "-S", "port.sam",
-               "--device", "cpu", mode, "--seed", "3"])
+               "--device", "cpu", *mode.split(), "--seed", "3"])
     t_err = capsys.readouterr().err
 
     def strip_pg(path):
@@ -175,9 +175,16 @@ def test_cli_same_sam_as_jax_cli(workloads, tmp_path, monkeypatch, capsys,
 
 
 def test_cli_refuses_other_options(capsys):
-    """An option the port's CLI does not take yet (-M, the -M sampling
-    bound) is refused, naming the ROADMAP item that ports it."""
+    """An option of the reference that neither CLI takes (--bowtie2p5, the
+    deprecated descent engine) is refused with the JAX parser's message."""
+    from bowtie2_server_tpu.__main__ import main as jax_main
     from bowtie2_server_tpu_torch.__main__ import main as port_main
-    with pytest.raises(SystemExit) as e:
-        port_main(["align", "-x", "i", "-U", "r.fq", "-M", "5"])
-    assert "ROADMAP Queue A item 14" in str(e.value)
+    argv = ["align", "-x", "i", "-U", "r.fq", "--bowtie2p5"]
+    errs = []
+    for fn in (jax_main, port_main):
+        with pytest.raises(SystemExit) as e:
+            fn(argv)
+        assert e.value.code == 2
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errs[1].split(": error: ")[1] == errs[0].split(": error: ")[1]
+    assert "--bowtie2p5 is not supported: the deprecated 2.5" in errs[1]
