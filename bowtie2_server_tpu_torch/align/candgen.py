@@ -1,6 +1,6 @@
 """Device-resident candidate generation + DP + selection — the hot path.
 Port of bowtie2_server_tpu/align/candgen.py (small and big indexes, one
-device).
+device or a 'dp' mesh of them).
 
 One call of `fused_pipeline` runs a whole search batch on the device (ref:
 the reference's hot loop, bt2_search.cpp:3050-4197 multiseedSearchWorker +
@@ -39,8 +39,10 @@ short-read shape (`cfg.has_short`: a short read anywhere in the batch, or
 diagonals carry a static bias BIAS = L + K so that they stay non-negative
 in uint32 as in the JAX package, whose 32-bit wraparound the int64 code
 reproduces where it reaches the output (the window start of a padding
-candidate). Multi-device meshes raise NotImplementedError (ROADMAP Queue A
-item 13).
+candidate). Over a 'dp' mesh (parallel/mesh.py) `CandGen` runs one
+pipeline a shard, each on its own device with the index replicated there,
+and moves each shard's read and candidate indices into the mesh's global
+space (`_to_global`), as the JAX package's `_sharded_pipeline` does.
 
 Everything is fixed-shape: hit, element and candidate sets are compacted
 to static capacities with overflow counters (no host synchronisation
@@ -61,6 +63,7 @@ from ..ops.fm import M32
 from ..ops.fm import nonzero_fixed as _nonzero_fixed
 from ..ops.sw import NEG_INF, SwConfig
 from ..ops.sw_banded import banded_dp
+from ..parallel.mesh import device_scope, replicate
 
 INT32_MIN = -(1 << 31)
 
@@ -846,23 +849,38 @@ def per_len(fn, lens):
     return vals[inv]
 
 
+def shard_overflows(counters, cfg) -> np.ndarray:
+    """[ndev] bool: which shards' counters (rows of `counters`) outgrew a
+    capacity of cfg."""
+    c = np.asarray(counters)
+    over = ((c[:, 0] > cfg.C_max) | (c[:, 1] > cfg.C_pre)
+            | (c[:, 2] > cfg.k1) | (c[:, 3] > cfg.k1) | (c[:, 4] > cfg.NH))
+    if cfg.RS > 0:
+        over |= c[:, 8] > cfg.RS
+    return over
+
+
 class BatchResult:
-    """Decoded outputs of one fused_pipeline run (host numpy)."""
+    """Decoded outputs of one pipeline run (host numpy): `out` holds the
+    ndev shards' blocks side by side along axis 1, their indices already
+    global (`_to_global`)."""
     __slots__ = ("counters", "B0", "c_read", "c_fw", "c_diag", "c_score",
                  "c_end", "c_nm", "c_ungapped",
                  "c_bi", "c_bk", "c_interior", "c_ws", "best_ci", "best_sc",
                  "sec_sc", "exact_mult", "seeds_failed_r0", "has_rect",
                  "overflow")
 
-    def __init__(self, B0, out, cfg, K):
+    def __init__(self, B0, out, cfg, ndev, K):
         self.B0 = B0
         Cl, Bl = cfg.C_max, cfg.B
         if cfg.pack5:
             W = Cl + 128
-            bp = out[3, :Bl][:B0]
-            secmult = out[4, :Bl][:B0]
-            ctr = out[4, W - 9 :][None, :]
-            r0 = out[0, :Cl].view(np.uint32)
+            blk = [out[:, s * W : (s + 1) * W] for s in range(ndev)]
+            bp = _join([b[3, :Bl] for b in blk])[:B0]
+            secmult = _join([b[4, :Bl] for b in blk])[:B0]
+            ctr = np.stack([b[4, W - 9 :] for b in blk])
+            cand = _join([b[:3, :Cl] for b in blk], 1)
+            r0 = cand[0].view(np.uint32)
             valid = (r0 & 1) > 0
             reads = ((r0 >> 4) & 0x3FFFF).astype(np.int32)
             keep = valid & (reads < B0)
@@ -871,8 +889,8 @@ class BatchResult:
             self.c_interior = ((r0 >> 1) & 1).astype(bool)[keep]
             self.c_nm = ((r0 >> 22) & 0x1FF).astype(np.int32)[keep]
             self.c_ungapped = (r0 >> 31).astype(bool)[keep]
-            self.c_diag = self._diag(out[1, :Cl][keep], cfg)
-            r2 = out[2, :Cl][keep]
+            self.c_diag = self._diag(cand[1][keep], cfg)
+            r2 = cand[2][keep]
             sc = (r2 & 0xFFFF) - 32768
             self.c_score = np.where(sc <= -30000, NEG_INF, sc)
             self.c_bk = (r2 >> 16) & 0xFF
@@ -882,11 +900,13 @@ class BatchResult:
             sec = np.where(sec_raw <= -30000, NEG_INF, sec_raw)
             mult = (secmult & 0xFFFF).astype(np.int64)
         else:
+            # the full 7-row layout: a shard's block is C_max columns
             row0 = out[0]
-            bp = out[4, :Bl][:B0]
-            sec = out[4, Bl : 2 * Bl][:B0]
-            mult = out[5, :Bl][:B0]
-            ctr = out[5, Cl - 9 :][None, :]
+            blk = [out[:, s * Cl : (s + 1) * Cl] for s in range(ndev)]
+            bp = _join([b[4, :Bl] for b in blk])[:B0]
+            sec = _join([b[4, Bl : 2 * Bl] for b in blk])[:B0]
+            mult = _join([b[5, :Bl] for b in blk])[:B0]
+            ctr = np.stack([b[5, Cl - 9 :] for b in blk])
             valid = (row0 & 1) > 0
             reads = row0 >> 4
             keep = valid & (reads < B0)
@@ -900,13 +920,7 @@ class BatchResult:
             self.c_nm = (out[6] & 0xFFFF)[keep]
             self.c_ungapped = ((out[6] >> 16) & 1).astype(bool)[keep]
         self.counters = ctr
-        self.overflow = bool((ctr[:, 0] > cfg.C_max).any()
-                             or (ctr[:, 1] > cfg.C_pre).any()
-                             or (ctr[:, 2] > cfg.k1).any()
-                             or (ctr[:, 3] > cfg.k1).any()
-                             or (ctr[:, 4] > cfg.NH).any()
-                             or (cfg.RS > 0
-                                 and (ctr[:, 8] > cfg.RS).any()))
+        self.overflow = bool(shard_overflows(ctr, cfg).any())
         self.c_ws = self.c_diag - K // 2
         self.c_end = self.c_ws + self.c_bi + self.c_bk
         # remap best_ci (packed-array index) to compacted space
@@ -936,19 +950,122 @@ class BatchResult:
         return row1
 
 
+def _to_global(out, s: int, cfg: CandGenCfg):
+    """Shard s's packed output, in place, with its read and candidate
+    indices moved into the mesh's global space (JAX `_sharded_pipeline`):
+    the read field of every valid candidate (bit 4 up in both layouts;
+    pack5's is 18 bits, so dispatch keeps ndev * B <= 2^18) gains s * B,
+    and best_ci (stored + 1 in the first B slots of the best-pack row)
+    gains s * C_max. int32 arithmetic, as on the JAX side."""
+    if s == 0:
+        return out
+    out[0] = torch.where((out[0] & 1) > 0, out[0] + ((s * cfg.B) << 4),
+                         out[0])
+    bp_row = 3 if cfg.pack5 else 4
+    bp = out[bp_row, : cfg.B]
+    ci1 = bp >> 2
+    out[bp_row, : cfg.B] = torch.where(
+        ci1 > 0, (((ci1 - 1 + s * cfg.C_max) + 1) << 2) | (bp & 3), bp)
+    return out
+
+
+def _staged(packed, meta, n: int, pinned: bool):
+    """`packed` [planes, n*B, L] and `meta` [n*B, 5] (host numpy) as
+    tensors laid out shard by shard, [n, planes, B, L] and [n, B, 5], so
+    that each shard's block is contiguous; on the card in one pinned copy
+    each, since only a copy from a contiguous pinned block runs
+    asynchronously."""
+    planes, Bp, L = packed.shape
+    pk = torch.empty((n, planes, Bp // n, L), dtype=torch.uint8,
+                     pin_memory=pinned)
+    pk.numpy()[...] = packed.reshape(planes, n, Bp // n, L).swapaxes(0, 1)
+    mt = torch.empty((n, Bp // n, meta.shape[1]), dtype=torch.int32,
+                     pin_memory=pinned)
+    mt.numpy()[...] = meta.reshape(mt.shape)
+    return pk, mt
+
+
+def _sharded_pipeline(cfg: CandGenCfg, devices, didx, dkm, packed, meta,
+                      mmtab) -> list:
+    """The fused pipeline over shards (JAX `_sharded_pipeline`, a
+    shard_map over 'dp'): shard s runs on devices[s] with reads [s*B,
+    (s+1)*B) of `packed` (axis 1) and `meta` (axis 0), host numpy; didx,
+    dkm (None: no seed table) and mmtab map each distinct device to its
+    replica. Every shard is enqueued before any is waited on: the
+    pipeline has no host sync, so a card works while the host enqueues the
+    next. Returns each shard's (host result, the event recorded after its
+    copy, or None on the CPU) for `_gather`."""
+    pk, mt = _staged(packed, meta, len(devices), devices[0].type == "cuda")
+    shards = []
+    for s, dev in enumerate(devices):
+        with device_scope(dev):
+            shards.append(_launch_shard(
+                s, dev, cfg, didx[dev], None if dkm is None else dkm[dev],
+                pk[s], mt[s], mmtab[dev]))
+    return shards
+
+
+def _launch_shard(s, dev, cfg, didx, dkm, packed, meta, mmtab):
+    """One shard's copies, pipeline, index remap and result copy on `dev`,
+    which the caller has made current; packed and meta are its staged
+    blocks (`_staged`)."""
+    if dev.type == "cuda":
+        # asynchronous copies: the host returns while the device works;
+        # _gather waits on the event recorded after the result copy into
+        # this shard's own pinned block
+        up = lambda t: t.to(dev, non_blocking=True)
+        out = _to_global(fused_pipeline(didx, dkm, cfg, up(packed),
+                                        up(meta), mmtab), s, cfg)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+    out = fused_pipeline(didx, dkm, cfg, packed.to(dev), meta.to(dev), mmtab)
+    return _to_global(out, s, cfg).cpu(), None
+
+
+def _join(parts, axis: int = 0) -> np.ndarray:
+    """The shards' pieces end to end along `axis` (one shard: its own,
+    not copied)."""
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis)
+
+
+def _gather(shards) -> np.ndarray:
+    """The shards' results side by side along axis 1 (the JAX
+    out_specs=P(None, 'dp')), once each shard's copy has landed."""
+    outs = []
+    for host, done in shards:
+        if done is not None:
+            done.synchronize()
+        outs.append(host.numpy())
+    return _join(outs, 1)
+
+
 class CandGen:
     """Host side of the fused device pipeline: padding/bucketing, packed
-    transfers, dispatch (asynchronous on CUDA) and fetch."""
+    transfers, dispatch (asynchronous on CUDA) and fetch; over a mesh, one
+    pipeline a shard."""
 
     def __init__(self, dev_fw, dev_mirror, idx, pol, sw_cfg, K: int, device,
                  mesh=None):
         """dev_fw/dev_mirror: the index's DeviceFm directions on `device`
-        (ops/fm.py), both small or both big."""
+        (ops/fm.py), both small or both big. mesh: a parallel.mesh.Mesh
+        whose first device is `device`; the index, its k-mer tables and
+        the mismatch table are replicated once on each of its distinct
+        devices (the JAX shard_map's P())."""
         self.device = torch.device(device)
         self.mesh = mesh
+        self.devices = mesh.devices if mesh is not None else (self.device,)
+        distinct = mesh.distinct if mesh is not None else self.devices
+        if self.devices[0] != self.device:
+            raise ValueError(f"the mesh's first device {self.devices[0]} "
+                             f"is not {self.device}")
         self.big = dev_fw.big
         self._sticky = 1   # sticky size_mult after an overflow escalation
         self.didx = make_device_index(idx, self.device, dev_fw, dev_mirror)
+        self._didx = {d: replicate(self.didx, d)
+                      for d in distinct}
         self._joined_host = idx.joined
         self._cache_base = getattr(idx, "cache_base", None)
         self.pol = pol
@@ -958,15 +1075,16 @@ class CandGen:
         self._ktabs: dict[int, tuple] = {}
 
     def _mmtab(self, mmtab):
+        """{device: the mismatch table} on each distinct device."""
         if self._mmtab_dev is None:
-            self._mmtab_dev = torch.from_numpy(
-                np.ascontiguousarray(mmtab[:64], np.int32)).to(self.device)
+            t = torch.from_numpy(np.ascontiguousarray(mmtab[:64], np.int32))
+            self._mmtab_dev = {d: t.to(d) for d in self._didx}
         return self._mmtab_dev
 
     def _kmer(self, seed_len: int):
-        """(device table, host table) for this seed length, cached. The
-        cuckoo table is preferred; the sorted table is the fallback when
-        placement fails."""
+        """({device: device table}, host table) for this seed length,
+        cached. The cuckoo table is preferred; the sorted table is the
+        fallback when placement fails."""
         hit = self._ktabs.get(seed_len)
         if hit is None:
             src = self._joined_host
@@ -978,10 +1096,11 @@ class CandGen:
                 if tab is not None and cb:
                     kmod.save_cuckoo_table(tab, cb, joined=src)
             if tab is not None:
-                hit = (kmod.cuckoo_to_device(tab, self.device), tab)
+                dtab = kmod.cuckoo_to_device(tab, self.device)
             else:
-                stab = kmod.build_kmer_table(src, seed_len)
-                hit = (kmod.to_device(stab, self.device), stab)
+                tab = kmod.build_kmer_table(src, seed_len)
+                dtab = kmod.to_device(tab, self.device)
+            hit = ({d: replicate(dtab, d) for d in self._didx}, tab)
             self._ktabs[seed_len] = hit
         return hit
 
@@ -991,13 +1110,12 @@ class CandGen:
         """seqs/quals: [B0, L0] uint8/int; lens [B0]. Returns an opaque
         handle (device work and the result copy still in flight) for
         fetch()."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet (ROADMAP Queue A "
-                "item 13)")
         pol = self.pol
         B0, L0 = seqs.shape
-        Bl = _pow2(B0, lo=256)
+        # reads split in ndev equal shards of Bl (JAX candgen.py:1350-1352)
+        ndev = len(self.devices)
+        Bl = _pow2(-(-B0 // ndev), lo=max(256 // ndev, 64))
+        Bp = Bl * ndev
         Lp = _pow2(max(L0, 32), lo=32)
 
         if boost is None:
@@ -1044,12 +1162,12 @@ class CandGen:
         if uniform_len:
             # single-plane encoded upload (1 B/base); right-align on device
             raw_len = L0
-            packed = np.full((1, Bl, L0), 255, np.uint8)
+            packed = np.full((1, Bp, L0), 255, np.uint8)
             s_a = np.asarray(seqs, np.uint8)
             packed[0, :B0] = np.where(s_a > 3, np.uint8(255),
                                       ((s_a & 3) << 6) | q6)
         else:
-            packed = np.full((2, Bl, Lp), 255, np.uint8)
+            packed = np.full((2, Bp, Lp), 255, np.uint8)
             enc = ((np.asarray(seqs) & 3) << 6) | q6
             enc = np.where(np.asarray(seqs) > 3, 255, enc).astype(np.uint8)
             packed[0, :B0, :L0] = enc
@@ -1059,7 +1177,7 @@ class CandGen:
             rows_e = np.broadcast_to(np.arange(B0)[:, None], (B0, L0))
             packed[1, rows_e[valid_e], dest[valid_e]] = enc[valid_e]
 
-        meta = np.zeros((Bl, 5), np.int32)
+        meta = np.zeros((Bp, 5), np.int32)
         m0 = lens_i.copy()
         m0 |= np.where(np.asarray(act_fw, bool), _F_ACT_FW, 0)
         m0 |= np.where(np.asarray(act_rc, bool), _F_ACT_RC, 0)
@@ -1107,7 +1225,7 @@ class CandGen:
         # sticky capacity escalation: a workload that overflowed once keeps
         # the larger sets
         size_mult = max(size_mult, self._sticky)
-        pack5 = (Lp <= 256 and self.K <= 256 and Bl <= (1 << 18))
+        pack5 = (Lp <= 256 and self.K <= 256 and ndev * Bl <= (1 << 18))
         # E scales with -k so the fused shape resolves enough elements per
         # range to honor khits (ref: aln_sink.h:264-283)
         E_eff = _pow2(max(pol.max_sa_elts, min(pol.khits, 1024)))
@@ -1140,28 +1258,10 @@ class CandGen:
         return self._launch(B0, cfg, dkm, packed, meta, mmtab)
 
     def _launch(self, B0, cfg, dkm, packed, meta, mmtab):
-        dev = self.device
-        if dev.type == "cuda":
-            # pinned staging + asynchronous copies: the host returns while
-            # the device works; fetch() waits on the event recorded after
-            # the result copy
-            up = lambda a: torch.from_numpy(a).pin_memory().to(
-                dev, non_blocking=True)
-            out = fused_pipeline(self.didx, dkm, cfg, up(packed), up(meta),
-                                 self._mmtab(mmtab))
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            return (B0, cfg, host, done)
-        out = fused_pipeline(self.didx, dkm, cfg,
-                             torch.from_numpy(packed).to(dev),
-                             torch.from_numpy(meta).to(dev),
-                             self._mmtab(mmtab))
-        return (B0, cfg, out.cpu(), None)
+        return (B0, cfg, _sharded_pipeline(cfg, self.devices, self._didx,
+                                           dkm, packed, meta,
+                                           self._mmtab(mmtab)))
 
     def fetch(self, handle) -> BatchResult:
-        B0, cfg, host, done = handle
-        if done is not None:
-            done.synchronize()
-        return BatchResult(B0, host.numpy(), cfg, self.K)
+        B0, cfg, shards = handle
+        return BatchResult(B0, _gather(shards), cfg, len(shards), self.K)

@@ -2,8 +2,9 @@
 PairedEndPolicy, aligner_sw_driver.cpp:1385 extendSeedsPaired,
 bt2_search.cpp paired driver paths). Port of
 bowtie2_server_tpu/align/paired.py: both mates run through the port's
-UnpairedAligner on the device given at construction, and mate rescue runs
-the rectangle DP there (the CUDA kernel of ops/csrc/sw.cu on the card).
+UnpairedAligner on the device given at construction (or over a 'dp' mesh,
+parallel/mesh.py), and mate rescue runs the rectangle DP on that device
+(the mesh's first; the CUDA kernel of ops/csrc/sw.cu on the card).
 
 Strategy: run the full unpaired candidate machinery on both mates, then
  1. enumerate concordant combos from the two candidate sets (classification
@@ -169,15 +170,20 @@ class PairedRecs:
 
 class PairedAligner:
     def __init__(self, index, scoring=None, policy: SearchPolicy | None = None,
-                 pe: PairedPolicy | None = None, *, device,
+                 pe: PairedPolicy | None = None, *, device=None,
                  no_mixed: bool = False, no_discordant: bool = False,
                  sc_unmapped_tlen: bool = False,
-                 force_big: bool | None = None):
+                 force_big: bool | None = None, mesh=None):
         """device: where both mates' pipelines and mate rescue run ('cpu'
         runs the plain torch versions of the kernels, 'cuda' the CUDA
-        kernels); force_big: as UnpairedAligner's."""
+        kernels); mesh: a 'dp' mesh for both mates' fused pipelines, whose
+        first device (the default `device`) runs mate rescue; force_big:
+        as UnpairedAligner's. Its UnpairedAligner (`up`) is the one the
+        server shares with the group's unpaired rows, so each device holds
+        the index once."""
         self.up = UnpairedAligner(index, scoring=scoring, policy=policy,
-                                  device=device, force_big=force_big)
+                                  device=device, force_big=force_big,
+                                  mesh=mesh)
         self.pe = pe or PairedPolicy()
         self.no_mixed = no_mixed        # ref: --no-mixed (gMixedMode off)
         self.no_discordant = no_discordant  # ref: --no-discordant

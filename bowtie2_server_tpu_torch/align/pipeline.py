@@ -2,7 +2,8 @@
 multiseedSearchWorker, aligner_sw_driver.cpp:756 SwDriver::extendSeeds).
 Port of bowtie2_server_tpu/align/pipeline.py: the UnpairedAligner, which
 runs the fused device pipeline of align/candgen.py on the device given at
-construction, and its host path (`_collect_host`: -a, -k above 1024, an
+construction (or over a 'dp' mesh of devices, parallel/mesh.py), and its
+host path (`_collect_host`: -a, -k above 1024, an
 index without its mirror direction, and a batch still overflowing after
 the capacity escalation), which drives the FM ops of ops/fm.py and the DP
 kernels batch-wise from the host; and the parts the paired aligner
@@ -505,21 +506,30 @@ def revcomp_batch(seqs, quals, lens):
 
 class UnpairedAligner:
     def __init__(self, index: FmIndex, scoring: Scoring | None = None,
-                 policy: SearchPolicy | None = None, *, device,
+                 policy: SearchPolicy | None = None, *, device=None,
                  nofw: bool = False, norc: bool = False, mesh=None,
                  force_big: bool | None = None):
         """device: where the device work runs ('cpu' runs the plain torch
-        versions of the kernels, 'cuda' the CUDA kernels). A genome past
-        ops/fm.BIG_THRESHOLD (~2.1 Gbp) takes the big-index device path
-        (uint32 rows, sampled SA; ref: the wrapper's small/large index
-        auto-pick, bowtie2-server:448-470); force_big=True takes it on a
-        small genome too, where the small path on the same index is its
-        oracle. Meshes (CandGen.dispatch) are not ported yet: they raise
-        NotImplementedError."""
+        versions of the kernels, 'cuda' the CUDA kernels). mesh: a 'dp'
+        mesh (parallel/mesh.py) over which the fused pipeline runs, reads
+        sharded and the index replicated on each of its devices; `device`
+        is then its first device (the default), where the FM directions,
+        the host path and the rect DP stay, as the JAX package leaves
+        everything but the sharded call on its default device. A genome
+        past ops/fm.BIG_THRESHOLD (~2.1 Gbp) takes the big-index device
+        path (uint32 rows, sampled SA; ref: the wrapper's small/large
+        index auto-pick, bowtie2-server:448-470); force_big=True takes it
+        on a small genome too, where the small path on the same index is
+        its oracle."""
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
+        if device is None:
+            raise TypeError("UnpairedAligner needs a device or a mesh")
         self.nofw = nofw
         self.norc = norc
         self.idx = index
         self.device = torch.device(device)
+        self.mesh = mesh
         self.sc = scoring or Scoring.default_e2e()
         self.pol = policy or SearchPolicy()
         self.band = band_for(self.pol.maxhalf)

@@ -3,8 +3,9 @@ pat.cpp:2016-2086 — per-connection `psq_idle` queues feeding the shared
 `psq_ready_` pool consumed by all worker threads; SURVEY §2.3 row 3 maps
 that scale-out axis to dispatching read packs across device groups).
 
-Architecture: N workers, each owning one DEVICE GROUP — here one torch
-device (the CPU, or one CUDA card; the index is replicated per group).
+Architecture: N workers, each owning one DEVICE GROUP — one torch device
+(the CPU, or one CUDA card) or a 'dp' mesh of several cards
+(parallel/mesh.py); the index is replicated per card.
 Packs are taken round-robin ACROSS CONNECTIONS — one pack per connection
 per turn — so a connection streaming millions of reads cannot starve a
 small one (the reference gets the same property from its per-connection
@@ -104,19 +105,16 @@ class AlignDispatcher:
             self._lock.notify_all()
 
 
-_MESH = ("device groups of more than one device (a data-parallel mesh) "
-         "are not ported yet (ROADMAP Queue A item 13)")
-
-
-def make_device_groups(n_workers: int, device) -> list[torch.device]:
-    """Partition the devices of `device` into n_workers disjoint groups of
-    one device each (ref: SURVEY §2.3 row 3 — per-host/per-group read
-    shards). device: 'cpu' (one group, the CPU), 'cuda' (every card) or
-    'cuda:k' (that card). Returns one torch.device per group.
-
-    A group of more than one device needs a data-parallel mesh, which the
-    port does not have: that raises NotImplementedError. Cards left over
-    when n_workers does not divide their count are named on stderr."""
+def make_device_groups(n_workers: int, device) -> list:
+    """Partition the devices of `device` into n_workers disjoint groups
+    (ref: SURVEY §2.3 row 3 — per-host/per-group read shards; JAX
+    server/dispatch.py). device: 'cpu' (the CPU), 'cuda' (every card) or
+    'cuda:k' (that card). One worker over more than one card gets one 'dp'
+    mesh over every card; else each worker gets `cards // n_workers`
+    cards, a Mesh (parallel/mesh.py) when that is more than one, the
+    torch.device itself otherwise. Cards left over are named on
+    stderr."""
+    from ..parallel.mesh import Mesh
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         devs = [torch.device("cuda", k)
@@ -124,15 +122,17 @@ def make_device_groups(n_workers: int, device) -> list[torch.device]:
     else:
         devs = [device]
     n_workers = max(n_workers, 1)
+    if n_workers == 1 and len(devs) > 1:
+        return [Mesh(devs)]
     if len(devs) < n_workers:
         raise ValueError(
             f"{n_workers} workers need >= {n_workers} devices "
             f"(have {len(devs)})")
-    if len(devs) // n_workers > 1:
-        raise NotImplementedError(
-            f"{n_workers} worker(s) over {len(devs)} devices: " + _MESH)
-    if len(devs) > n_workers:
-        print(f"bt2srv: {n_workers} worker(s) use {devs[:n_workers]}; "
-              f"{[str(d) for d in devs[n_workers:]]} stay idle",
-              file=sys.stderr)
-    return devs[:n_workers]
+    per = len(devs) // n_workers
+    groups = [devs[k * per : (k + 1) * per] for k in range(n_workers)]
+    idle = devs[n_workers * per :]
+    if idle:
+        print(f"bt2srv: {n_workers} worker(s) use "
+              f"{[[str(d) for d in g] for g in groups]}; "
+              f"{[str(d) for d in idle]} stay idle", file=sys.stderr)
+    return [Mesh(g) if len(g) > 1 else g[0] for g in groups]

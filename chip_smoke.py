@@ -4,7 +4,8 @@
 Run from the root of a checkout:  python3 chip_smoke.py [--paths]
 
 (--paths: only phases 1, 2, 4, SR, BIG and PE, for an A/B of two
-checkouts on one card; --opts: only phases 1, 2 and OPTS.)
+checkouts on one card; --opts: only phases 1, 2 and OPTS; --mesh: only
+phases 1, 2 and MESH.)
 
 It imports nothing of JAX. Phases, in order; any failure exits non-zero and
 prints no result line:
@@ -73,6 +74,25 @@ prints no result line:
      server's first request apart, and the kernel launches of the phase;
      sw_banded must launch on the unpaired server and sw on the paired
      one. A failed pack fails the phase: nothing is answered from the CPU;
+  MESH. the main path over a 'dp' mesh (parallel/mesh.py) at full width:
+     phase 4's genome and reads (batches of 32768, e2e --sensitive, K = 64)
+     on one card and on logical meshes of 2 and 4 shards on cuda:0, one
+     warm-up batch and 4 measured at depth 4 each (launch counters zeroed
+     just before and read just after): reads/s, the host ms a dispatch
+     takes to enqueue its shards, sw_banded once a shard and dispatch (a
+     shard that outgrew its capacities is named), two more batches under
+     torch.profiler (busy share); every mesh's SAM equal line by line to
+     the one-card run's. Then CUDA against CPU over a mesh of 2 logical
+     shards (2048 reads, 2048 of 18-60 bp, 2048 under force_big, 512
+     pairs with rescue), make_sharded_step on 4096 reads on the card
+     against the CPU (best, offs, n_aligned equal; the one path that
+     launches banded_kernel<32>), and dryrun_multichip and
+     dryrun_full_pipeline over every card, or over 2 logical shards of
+     cuda:0 on a one-card machine. With more than one card, the same loop
+     over make_mesh() (every card) and a `--workers 1` Bt2Server, whose
+     worker then holds that mesh: a raw request equal to a one-card
+     worker's _align_pack and phase SRV's unpaired clients; with one card
+     it logs that neither ran;
   SR. the short-read path at full width: the general shape (FM walks on
      the card) on phase 4's genome, its fw and mirror FM directions on the
      card (full SA, sides, ftab); 36 bp reads (0-2 substitutions, half
@@ -282,6 +302,18 @@ OPTS_PARITY = 2048
 OPTS_PAIRS = 1024
 OPTS_DP_PROBLEMS = 1024
 OPTS_NOT_COUNTERS = {"Time", "MemPeak", "EbwtMemPeak", "ResolveMemPeak"}
+# phase MESH: the main path over a 'dp' mesh (parallel/mesh.py) at full
+# width: logical meshes of MESH_SHARDS shards on cuda:0 beside the one-card
+# path, one warm-up batch of BATCH reads and MESH_BATCHES measured (cut from
+# N_BATCHES: the phase's time), PROFILED more under torch.profiler; CUDA
+# against CPU over a mesh of 2 on MESH_PARITY reads (fast, 18-60 bp,
+# force_big) and MESH_PAIRS pairs; make_sharded_step on MESH_STEP_READS
+# reads of 100 bp
+MESH_SHARDS = (2, 4)
+MESH_CARD = "cuda:0"    # the card that holds the logical shards
+MESH_BATCHES = 4
+MESH_PARITY, MESH_PAIRS = 2048, 512
+MESH_STEP_READS, MESH_STEP_K = 4096, 32
 # kernels line: name -> (source in the port, the TPU kernel it replaces)
 KERNEL_SOURCES = {
     "sw_banded": ("sw_banded.cu", "bowtie2_server_tpu/ops/sw_banded.py:240"),
@@ -519,7 +551,8 @@ def phase_kernels(contigs):
     from bowtie2_server_tpu_torch.ops import alu_probe, kernels
     from bowtie2_server_tpu_torch.ops import sw as tsw
     from bowtie2_server_tpu_torch.ops import sw_banded as tsb
-    from bowtie2_server_tpu_torch.scripts import bench_banded, bench_rect
+    from bowtie2_server_tpu_torch.scripts import (bench_banded, bench_dp,
+                                                  bench_rect)
     sys.path.insert(0, str(ROOT / "tests"))
     from torch_tiles import (CFGS, LARGE_SCORE_CFG, banded_edge_tile,
                              rect_tie_tile)
@@ -558,11 +591,15 @@ def phase_kernels(contigs):
                lambda n: alu_probe.alu_chain(x, n),
                lambda n: alu_probe.alu_chain_torch(x, n), "alu_kernel")
     n_ops = alu_probe.OPS_PER_STEP * nsteps * rows * P
-    ceiling = n_ops / (run[1] / 1e3)
-    log(f"int32 ceiling measured by the probe: {ceiling:.4e} ops/s")
+    # the profiler's time unless it strays from the event time (bench_dp)
+    probe, clock = bench_dp.probe_ms(run[1], run[3])
+    ceiling = n_ops / (probe / 1e3)
+    log(f"int32 ceiling measured by the probe: {ceiling:.4e} ops/s, from "
+        f"its {'profiler' if clock == 'device' else 'CUDA-event'} time "
+        f"{probe:.4f} ms (profiler {run[1]:.4f}, events {run[3]:.4f})")
     out = {"alu_probe": dict(
         summary([run], bench_rect.bound(n_ops, 0, ceiling)),
-        ceiling_ops_per_s=ceiling,
+        ceiling_ops_per_s=ceiling, ceiling_clock=clock,
         bound_note="the probe's own time: it measures the int32 ceiling "
                    "that the other kernels' bounds divide by")}
     k128 = summary(wide128[0], bench_banded.banded_bound(
@@ -1169,6 +1206,254 @@ def phase_server(base, contigs, pbase, chroms):
                paired_host=srv_breakdown("paired", timers, wall))
     log(f"phase SRV in {time.time() - t_phase:.1f} s on {card_line()}")
     return out
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of the tensors in a tree of them (`mesh.tree_map`)."""
+    from bowtie2_server_tpu_torch.parallel.mesh import tree_map
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel() * t.element_size()), tree)
+    return sum(sizes)
+
+
+def run_mesh_path(idx, batches, where, label):
+    """Phase 4's loop on an UnpairedAligner placed by `where` (a device or
+    a mesh): batches[0] warms up, the next MESH_BATCHES run at depth DEPTH
+    with the launch counters zeroed just before and read just after, the
+    rest under torch.profiler. Logs and returns (the measured batches' SAM
+    lines, a dict of reads/s, launches, dispatches, the host ms a dispatch
+    took to enqueue, the shards that overflowed and the device shares)."""
+    import torch
+    from bowtie2_server_tpu_torch.align.candgen import shard_overflows
+    from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner
+    from bowtie2_server_tpu_torch.ops import kernels
+    al = UnpairedAligner(idx, **where)
+    cg = al.candgen
+    n_shards = len(cg.devices)
+    disp, over = [], []
+    dispatch, fetch = cg.dispatch, cg.fetch
+
+    def timed_dispatch(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return dispatch(*a, **k)
+        finally:
+            disp.append((time.perf_counter() - t0) * 1e3)
+
+    def checked_fetch(h):
+        res = fetch(h)
+        bad = np.nonzero(shard_overflows(res.counters, h[1]))[0]
+        if len(bad):
+            over.append([int(b) for b in bad])
+        return res
+
+    cg.dispatch, cg.fetch = timed_dispatch, checked_fetch
+    al.align_batch(*batches[0])
+    # what each distinct card holds: the index (both FM directions, the
+    # packed text, run bounds) and the k-mer table, once however many
+    # shards it runs
+    held = {str(d): (tensor_bytes(cg._didx[d]) + sum(
+        tensor_bytes(t[d]) for t, _ in cg._ktabs.values())) / 2**20
+        for d in cg._didx}
+    disp.clear()
+    over.clear()
+    measured = batches[1 : 1 + MESH_BATCHES]
+    kernels.reset_launches()
+    t0 = time.time()
+    outs = pipelined(al.align_async, al.align_wait, measured, DEPTH)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_disp, disp_ms = len(disp), float(np.mean(disp))
+    over_ms = list(over)
+    prof = profile_device(lambda: pipelined(
+        al.align_async, al.align_wait, batches[1 + MESH_BATCHES :], DEPTH))
+    n = sum(len(b[0]) for b in measured)
+    rps = n / dt
+    log(f"MESH {label}: {rps:.1f} reads/s over {len(measured)} batches of "
+        f"{len(measured[0][0])} at depth {DEPTH}; {n_disp} dispatches, "
+        f"{disp_ms:.2f} ms of host time a dispatch to enqueue its "
+        f"{n_shards} shard(s); sw_banded {launches['sw_banded']} launches "
+        f"({launches['sw_banded'] / len(measured):.2f} a batch, "
+        f"{n_shards} a dispatch); shards that overflowed their capacities: "
+        f"{over_ms or 'none'}; launches {launches}; the index and k-mer "
+        f"table held a card, MiB: {held}")
+    if launches["sw_banded"] != n_shards * n_disp:
+        raise RuntimeError(f"MESH {label}: {launches['sw_banded']} "
+                           f"sw_banded launches, not one a shard and "
+                           f"dispatch ({n_shards} x {n_disp})")
+    for name in ("sw_banded", "sw_banded_general", "sw"):
+        if launches[name] == 0:
+            raise RuntimeError(f"MESH {label}: never launched {name}")
+    shares = device_shares(f"MESH {label}", prof, PROFILED)
+    sam = [ln for r in outs for ln in sam_lines(r, idx.ref_names)]
+    return sam, dict(shards=n_shards, reads_per_s=rps, launches=launches,
+                     dispatches=n_disp, dispatch_host_ms=disp_ms,
+                     overflowed_shards=over_ms, index_mib=held,
+                     device=shares)
+
+
+def mesh_same_sam(label, got, want):
+    diff = sum(a != b for a, b in zip(got, want)) + abs(len(got) - len(want))
+    if diff:
+        raise RuntimeError(f"MESH {label}: {diff} SAM lines differ from "
+                           f"the one-card run's")
+    log(f"MESH {label}: {len(got)} SAM lines identical to the one-card "
+        f"run's")
+
+
+def mesh_step(idx, contigs, shards):
+    """make_sharded_step over `shards` logical shards, on cuda:0 against
+    the CPU: best, offs and n_aligned equal; on the card it launches
+    fm_walk (SEARCH) and banded_kernel<32> once a shard."""
+    import torch
+    from bowtie2_server_tpu_torch.ops import fm as dfm
+    from bowtie2_server_tpu_torch.ops import kernels
+    from bowtie2_server_tpu_torch.ops.sw import SwConfig
+    from bowtie2_server_tpu_torch.parallel.mesh import (make_mesh,
+                                                        make_sharded_step)
+    from bowtie2_server_tpu_torch.utils import dna
+    from bowtie2_server_tpu_torch.utils.scoring import Scoring
+    _, seqs, quals, _ = make_reads(67, contigs, MESH_STEP_READS)
+    reads = np.stack([dna.encode(s) for s in seqs]).astype(np.uint8)
+    lens = np.full(len(seqs), READ_LEN, np.int32)
+    sc = Scoring.default_e2e()
+    mmpen = sc.mm_penalties()[np.frombuffer(b"".join(quals), np.uint8)
+                              .reshape(reads.shape) - 33].astype(np.int32)
+    minsc = sc.score_min_for(READ_LEN)
+    host = [torch.from_numpy(a) for a in (reads, lens, mmpen)]
+    got = []
+    for dev in (MESH_CARD, "cpu"):
+        step = make_sharded_step(make_mesh(shards, device=dev), SwConfig(),
+                                 MESH_STEP_K)
+        fm = dfm.to_device(idx.fw, dev)
+        joined = torch.from_numpy(idx.joined).to(dev)
+        kernels.reset_launches()
+        got.append([t.cpu().numpy() for t in step(fm, joined, *host, minsc)])
+        if len(got) == 1:
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+    for k, name in enumerate(("best", "offs", "n_aligned")):
+        if not np.array_equal(got[0][k], got[1][k]):
+            raise RuntimeError(f"MESH make_sharded_step: {name} differs "
+                               f"between CUDA and CPU")
+    if launches["sw_banded"] != shards or launches["fm_walk"] != shards:
+        raise RuntimeError(f"MESH make_sharded_step: launches {launches}, "
+                           f"not one sw_banded and fm_walk a shard")
+    log(f"MESH make_sharded_step over {shards} logical shards, "
+        f"{MESH_STEP_READS} reads of {READ_LEN} bp, K = {MESH_STEP_K}: "
+        f"best, offs and n_aligned ({int(got[1][2])}) equal on CUDA "
+        f"and CPU; card launches {launches}")
+    return launches
+
+
+def phase_mesh(base, idx, contigs, pidx, chroms):
+    """Phase MESH: the main path over 'dp' meshes at full width. Logical
+    meshes of MESH_SHARDS shards on cuda:0 beside the one-card path on the
+    same reads (SAM equal), CUDA against CPU over a mesh of 2,
+    make_sharded_step on the card against the CPU, the dry runs; over
+    every card and through a `--workers 1` server when the machine has
+    more than one. Returns the paths line's "mesh" entry."""
+    import torch
+    from bowtie2_server_tpu_torch.align.pipeline import SearchPolicy
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.parallel import mesh as tmesh
+    t_phase = time.time()
+    names, seqs, quals, _ = make_reads(
+        61, contigs, BATCH * (1 + MESH_BATCHES + PROFILED))
+    batches = [(make_batch(names[i : i + BATCH], seqs[i : i + BATCH],
+                           quals[i : i + BATCH]),)
+               for i in range(0, len(names), BATCH)]
+    one_sam, one = run_mesh_path(idx, batches, dict(device=MESH_CARD),
+                                 "one card")
+    out = {"one_card": one}
+    for n in MESH_SHARDS:
+        label = f"{n} logical shards on {MESH_CARD}"
+        sam, res = run_mesh_path(
+            idx, batches, dict(mesh=tmesh.make_mesh(n, device=MESH_CARD)),
+            label)
+        mesh_same_sam(label, sam, one_sam)
+        out[f"logical_{n}"] = res
+    for label, pol, reads, big in (
+            ("reads", SearchPolicy(), make_reads(63, contigs, MESH_PARITY)[:3],
+             None),
+            ("reads of 18-60 bp", SearchPolicy(),
+             make_mixed_reads(64, contigs, MESH_PARITY), None),
+            ("force_big", SearchPolicy(),
+             make_reads(65, contigs, MESH_PARITY)[:3], True)):
+        launches, _ = parity_unpaired(f"mesh of 2 logical shards, {label}",
+                                      idx, pol, *reads, force_big=big,
+                                      shards=2)
+        if launches["sw_banded"] < 2:
+            raise RuntimeError(f"MESH parity {label}: {launches}")
+    launches = phase_parity_paired(pidx, chroms, MESH_PAIRS, shards=2)
+    if launches["sw"] == 0:
+        raise RuntimeError("MESH parity pairs: mate rescue never launched "
+                           "sw")
+    out["step_launches"] = mesh_step(idx, contigs, 2)
+    n_cards = torch.cuda.device_count()
+    dry = (n_cards, "cuda") if n_cards >= 2 else (2, MESH_CARD)
+    for name in ("dryrun_multichip", "dryrun_full_pipeline"):
+        getattr(tmesh, name)(*dry)
+        log(f"MESH {name}{dry}: passed")
+    if n_cards >= 2:
+        label = f"make_mesh() over {n_cards} cards"
+        sam, res = run_mesh_path(idx, batches, dict(mesh=tmesh.make_mesh()),
+                                 label)
+        mesh_same_sam(label, sam, one_sam)
+        out["cards"] = res
+        out["server"] = mesh_server(base, contigs, n_cards)
+    else:
+        log("MESH: one card seen (torch.cuda.device_count() == 1): the "
+            "mesh over real cards and the --workers 1 server over it were "
+            "not run")
+    log(f"phase MESH in {time.time() - t_phase:.1f} s on {card_line()}")
+    return out
+
+
+def mesh_server(base, contigs, n_cards):
+    """Bt2Server(device='cuda') with --workers 1 on a machine of n_cards:
+    its one worker holds a mesh over every card. A raw request with fixed
+    names equals _align_pack on a one-card worker, line by line; then
+    phase SRV's unpaired clients load it."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_serving import serving
+    from bowtie2_server_tpu_torch.align.paired import PairedAligner
+    from bowtie2_server_tpu_torch.ops import kernels
+    from bowtie2_server_tpu_torch.server.bt2srv import Bt2Server
+    srv = Bt2Server(str(base), device="cuda")
+    try:
+        if srv.up.mesh is None or srv.up.mesh.size != n_cards:
+            raise RuntimeError(f"server --workers 1 on {n_cards} cards: "
+                               f"its worker holds {srv.up.mesh}")
+        with serving(srv) as port:
+            names, seqs, quals = make_mixed_reads(66, contigs, SRV_EXACT,
+                                                  lo=18, hi=100)
+            rows = [(n, s, q, None, None, None)
+                    for n, s, q in zip(names, seqs, quals)]
+            pal = PairedAligner(srv.idx, device=MESH_CARD)
+            first = srv_exact(srv, port, rows, (pal.up, pal),
+                              f"a mesh of {n_cards} cards against one card")
+            loads = []
+            for c in range(SRV_CLIENTS):
+                _, seqs, quals, _ = make_reads(90 + c, contigs, SRV_READS)
+                loads.append(list(zip(
+                    [f"c{c}r{i}" for i in range(SRV_READS)], seqs, quals)))
+            kernels.reset_launches()
+            lines, wall = srv_clients(port, loads)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        srv.close()
+    if any(len(ln) != SRV_READS for ln in lines):
+        raise RuntimeError("MESH server: a read without its one record")
+    rps = SRV_CLIENTS * SRV_READS / wall
+    log(f"MESH server --workers 1 over {n_cards} cards ({srv.up.mesh}): "
+        f"{rps:.1f} reads/s from {SRV_CLIENTS} clients x {SRV_READS} reads "
+        f"({wall:.2f} s, host clock); first request {first:.3f} s; "
+        f"launches {launches}")
+    return dict(reads_per_s=rps, first_request_s=first, launches=launches)
 
 
 @contextlib.contextmanager
@@ -1793,9 +2078,21 @@ def sam_lines(recs, ref_names):
     return [sam_record(r, ref_names) for r in items]
 
 
+def placed(dev: str, shards=None) -> dict:
+    """An aligner's placement: the device `dev` ('cuda' or 'cpu') or, with
+    `shards`, a 'dp' mesh of that many logical shards on it (cuda:0 for
+    the card)."""
+    if shards is None:
+        return dict(device=dev)
+    from bowtie2_server_tpu_torch.parallel.mesh import make_mesh
+    return dict(mesh=make_mesh(shards, device=MESH_CARD if dev == "cuda"
+                               else dev))
+
+
 def parity_unpaired(label, idx, pol, names, seqs, quals, results=True,
-                    force_big=None):
-    """One batch through UnpairedAligner on the card and on the CPU, which
+                    force_big=None, shards=None):
+    """One batch through UnpairedAligner on the card and on the CPU (with
+    `shards`, over a mesh of that many logical shards on each), which
     must give identical SAM lines and, with `results`, identical decoded
     batch results of the fused pipeline. Returns (the card run's kernel
     launches, its SAM lines)."""
@@ -1806,8 +2103,8 @@ def parity_unpaired(label, idx, pol, names, seqs, quals, results=True,
     from bowtie2_server_tpu_torch.ops import kernels
     sams, res = {}, {}
     for dev in ("cuda", "cpu"):
-        al = UnpairedAligner(idx, policy=pol, device=dev,
-                             force_big=force_big)
+        al = UnpairedAligner(idx, policy=pol, force_big=force_big,
+                             **placed(dev, shards))
         batch = make_batch(names, seqs, quals)
         if results:
             res[dev] = al.collect(batch).res
@@ -1910,7 +2207,7 @@ def phase_parity_host(n=256, n_unit=16):
                            "fm_walk")
 
 
-def phase_parity_paired(pidx, chroms, n=512, force_big=None):
+def phase_parity_paired(pidx, chroms, n=512, force_big=None, shards=None):
     import torch
     from bowtie2_server_tpu_torch.align.paired import PairedAligner
     from bowtie2_server_tpu_torch.io.fastq import make_batch
@@ -1920,7 +2217,8 @@ def phase_parity_paired(pidx, chroms, n=512, force_big=None):
     sams = {}
     for dev in ("cuda", "cpu"):
         kernels.reset_launches()
-        pal = PairedAligner(pidx, device=dev, force_big=force_big)
+        pal = PairedAligner(pidx, force_big=force_big,
+                            **placed(dev, shards))
         pairs = pal.align_batch(make_batch(names, s1, quals),
                                 make_batch(names, s2, quals))
         sams[dev] = [sam_record(r, pidx.ref_names)
@@ -1928,12 +2226,14 @@ def phase_parity_paired(pidx, chroms, n=512, force_big=None):
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = dict(kernels.LAUNCHES)
+    what = "".join([", force_big" if force_big else "",
+                    f", mesh of {shards} logical shards" if shards else ""])
     diff = sum(a != b for a, b in zip(sams["cuda"], sams["cpu"]))
     if diff or len(sams["cuda"]) != 2 * n:
         raise RuntimeError(f"{diff} paired SAM lines differ between CUDA "
-                           f"and CPU{' (force_big)' if force_big else ''}")
-    log(f"CUDA vs CPU{', force_big' if force_big else ''}: {n} pairs, SAM "
-        f"lines identical; card launches {launches}")
+                           f"and CPU{what}")
+    log(f"CUDA vs CPU{what}: {n} pairs, SAM lines identical; card launches "
+        f"{launches}")
     return launches
 
 
@@ -2342,6 +2642,8 @@ def main(argv=None):
         "of this script placed in the root of each"))
     ap.add_argument("--opts", action="store_true", help=(
         "only phases 1, 2 and OPTS (the genomes built first)"))
+    ap.add_argument("--mesh", action="store_true", help=(
+        "only phases 1, 2 and MESH (the genomes built first)"))
     cli = ap.parse_args(argv)
     paths_only = cli.paths
     card = phase_env()
@@ -2368,6 +2670,10 @@ def main(argv=None):
     if cli.opts:
         log(json.dumps({"paths": {"opts": phase_opts(base, contigs, pbase,
                                                      chroms)}}))
+        return
+    if cli.mesh:
+        log(json.dumps({"paths": {"mesh": phase_mesh(base, idx, contigs,
+                                                     pidx, chroms)}}))
         return
     if paths_only:
         _, main_res = phase_main(idx, contigs, local=False)
@@ -2399,6 +2705,7 @@ def main(argv=None):
     del big_cap
     pe_launches, pe_res = phase_paired(pidx, chroms)
     srv_res = phase_server(base, contigs, pbase, chroms)
+    mesh_res = phase_mesh(base, idx, contigs, pidx, chroms)
     small_sam = phase_parity(idx, contigs)
     phase_parity_short(idx, contigs)
     phase_parity_host()
@@ -2428,7 +2735,7 @@ def main(argv=None):
     log(json.dumps({"paths": {"unpaired": main_res, "paired": pe_res,
                               "short": sr_res, "n1": n1_res,
                               "big": big_res, "server": srv_res,
-                              "opts": opts_res}}))
+                              "mesh": mesh_res, "opts": opts_res}}))
     # no PyTorch call computes any of these functions (a DP, the probe's
     # chain, an FM walk, a walk-left): library_ms is null
     kern = [dict(name=name, route="cuda",

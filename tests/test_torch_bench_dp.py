@@ -102,3 +102,16 @@ def test_bench_dp_cpu_run(capsys):
         / out["ceiling_ops_per_s"])
     assert out["card"] == "cpu"
     assert "not meaningful" in out["note"]
+
+
+@pytest.mark.parametrize("dev_ms,event_ms,want", [
+    (0.5336, 0.7940, (0.7940, "events")),   # the profiler misread it
+    (0.7870, 0.7900, (0.7870, "device")),
+    (0.9000, 1.0000, (0.9000, "device")),   # at the tolerance: kept
+    (1.1100, 1.0000, (1.0000, "events")),   # above the event time too
+], ids=["misread", "agree", "at_tol", "above"])
+def test_probe_ms_picks_the_clock(dev_ms, event_ms, want):
+    """The probe's time for the ceiling: its profiler time unless that
+    strays more than 10% from its event time (exact on made-up times)."""
+    from bowtie2_server_tpu_torch.scripts.bench_dp import probe_ms
+    assert probe_ms(dev_ms, event_ms) == want

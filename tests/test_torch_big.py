@@ -179,7 +179,7 @@ def test_fused_big_packed_equal(genome, jax_big_run, case):
     assert tcfg.big
     np.testing.assert_array_equal(got, want)
     _assert_batch_results_equal(want, got, cfg, tcfg, B0, cfg.K)
-    res = tcg.BatchResult(B0, got, tcfg, cfg.K)
+    res = tcg.BatchResult(B0, got, tcfg, 1, cfg.K)
     assert len(res.c_diag) and (res.c_diag > -cfg.L).all()
 
 

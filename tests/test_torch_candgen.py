@@ -54,7 +54,7 @@ def entry_state():
 
 def _assert_batch_results_equal(want_out, got_out, jcfg, tcfg, B0, K):
     jr = jcg.BatchResult(B0, want_out, jcfg, 1, K)
-    tr = tcg.BatchResult(B0, got_out, tcfg, K)
+    tr = tcg.BatchResult(B0, got_out, tcfg, 1, K)
     for name in jcg.BatchResult.__slots__:
         w, g = getattr(jr, name), getattr(tr, name)
         if isinstance(w, np.ndarray):
@@ -161,17 +161,15 @@ def test_nonzero_fixed_matches_jnp_nonzero():
 
 
 def test_dispatch_refuses_unported_shapes(genome, monkeypatch):
-    """What the port still refuses: multi-device meshes (ROADMAP Queue A
-    item 13). Big indexes run (tests/test_torch_big.py): convert carries a
-    big config across, and an index past the threshold takes the big
-    layout on its own."""
+    """The port refuses no shape the JAX package dispatches: meshes run
+    (tests/test_torch_mesh*.py), and so do big indexes
+    (tests/test_torch_big.py): convert carries a big config across, and an
+    index past the threshold takes the big layout on its own."""
     from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner as TAl
     from bowtie2_server_tpu_torch.io.fastq import make_batch
     from bowtie2_server_tpu_torch.ops import fm as tfm
     _, idx = genome
     short = make_batch(["s"], [b"ACGTACGTAC"], [b"IIIIIIIIII"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TAl(idx, mesh=object(), device="cpu").align_batch(short)
     cfg = convert.cfg_from_fields({"sw": {}, "B": 256, "L": 32, "S": 4,
                                    "R": 2, "E": 16, "seed_len": 20, "K": 64,
                                    "k1": 4096, "chunk_w": 8, "n_chunks": 2,

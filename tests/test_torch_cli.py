@@ -306,6 +306,65 @@ def test_paired_options(inputs, tmp_path, monkeypatch, capsys, case):
     assert len(sam) >= 2 * 40
 
 
+# ---- the paired inputs other than -1/-2 take the JAX CLI's branches: the
+# options beyond orientation and fragment lengths do not apply there ----
+PAIR_ONLY_OPTS = ["--no-unal", "--nofw", "--dovetail", "--no-contain",
+                  "--no-overlap", "--un-conc", "unc%.fq", "--al-conc",
+                  "alc%.fq", "--sample", "0.5", "--seed", "3", "--met-file",
+                  "met.tsv"]
+OTHER_PAIRED = {
+    "bam_pairs": ["-b", "-U", "pairs.bam", "--align-paired-reads"],
+    "tab6_pairs": ["--tab6", "pairs.tab"],
+    "interleaved": ["--interleaved", "pairs.il"],
+}
+# the --met TSV's columns that are not counters: wall time, and memory
+# peaks (the process's RSS, and each package's own index and SA arrays)
+NOT_COUNTERS = {"Time", "MemPeak", "EbwtMemPeak", "ResolveMemPeak"}
+
+
+def _tsv_counters(text):
+    rows = [ln.split("\t") for ln in text.splitlines()]
+    keep = [k for k, c in enumerate(rows[0] if rows else [])
+            if c not in NOT_COUNTERS]
+    return [[r[k] for k in keep] for r in rows]
+
+
+@pytest.mark.parametrize("src", list(OTHER_PAIRED.values()),
+                         ids=list(OTHER_PAIRED))
+def test_other_paired_inputs_as_jax_branches(inputs, tmp_path, monkeypatch,
+                                             capsys, src):
+    """-b --align-paired-reads, paired --tab6 and --interleaved under the
+    options the JAX CLI ignores on them: SAM, the summary, the set of files
+    written (no --un-conc/--al-conc file) and each file are exact against
+    the JAX CLI's (the --met TSV by its counter columns)."""
+    _, f = inputs
+    got = run_both(inputs, tmp_path, monkeypatch, capsys,
+                   _resolve(f, src + PAIR_ONLY_OPTS))
+    assert_same(got)
+    # files only: the JAX CLI also makes its compile cache's directory
+    files = {tag: sorted(p.name for p in (tmp_path / tag).iterdir()
+                         if p.is_file())
+             for tag in ("jax", "port")}
+    assert files["port"] == files["jax"]
+    assert "met.tsv" in files["port"]
+    assert not any(n.startswith(("unc", "alc")) for n in files["port"])
+    for name in files["jax"]:
+        if name == "out.sam":
+            continue
+        want, have = ((tmp_path / tag / name).read_text()
+                      for tag in ("jax", "port"))
+        if name == "met.tsv":
+            want, have = _tsv_counters(want), _tsv_counters(have)
+        assert have == want, name
+    # --no-unal and --nofw did not apply; --sample applies but to BAM
+    sam = [ln for ln in got["port"][0] if not ln.startswith("@")]
+    flags = [int(ln.split("\t")[1]) for ln in sam]
+    assert any(fl & 4 for fl in flags)
+    assert any(not fl & 4 and not fl & 16 for fl in flags)
+    n_pairs = 40 if src[0] == "--interleaved" else N_PAIRS
+    assert (len(sam) < 2 * n_pairs) == (src[0] != "-b")
+
+
 def test_preserve_tags_needs_bam(inputs):
     _, f = inputs
     with pytest.raises(SystemExit) as e:

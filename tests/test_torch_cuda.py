@@ -676,6 +676,91 @@ def test_server_cuda_equals_cpu(cuda_device, tmp_path):
     assert launches["sw_banded"] >= 2 and launches["sw"] >= 1
 
 
+@pytest.mark.parametrize("shards", [2, 4])
+def test_logical_mesh_equals_one_card(shards, cuda_device):
+    """UnpairedAligner over a mesh of `shards` logical shards of cuda:0
+    writes the one card's SAM (exact), launching sw_banded once a shard;
+    the paired aligner over the same mesh writes the one card's pairs."""
+    from bowtie2_server_tpu_torch.align.paired import PairedAligner
+    from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.parallel.mesh import make_mesh
+    idx, names, seqs, quals = _workload()
+    batch = make_batch(names, seqs, quals)
+    mesh = make_mesh(shards, device="cuda:0")
+    one = _sams(UnpairedAligner(idx, device="cuda:0").align_batch(batch),
+                idx.ref_names)
+    kernels.reset_launches()
+    got = _sams(UnpairedAligner(idx, mesh=mesh).align_batch(batch),
+                idx.ref_names)
+    torch.cuda.synchronize()
+    assert got == one
+    assert kernels.LAUNCHES["sw_banded"] == shards
+    assert kernels.LAUNCHES["sw"] >= 1
+    b1 = make_batch(names[:400], seqs[:400], quals[:400])
+    b2 = make_batch(names[:400], seqs[400:800], quals[400:800])
+    pairs = {}
+    for tag, where in (("one", dict(device="cuda:0")),
+                       ("mesh", dict(mesh=mesh))):
+        pairs[tag] = [_sams([r1, r2], idx.ref_names) for r1, r2 in
+                      PairedAligner(idx, **where).align_batch(b1, b2)]
+    assert pairs["mesh"] == pairs["one"]
+
+
+def test_sharded_step_on_the_card(cuda_device):
+    """make_sharded_step over two logical shards of cuda:0 equals the CPU
+    (exact best, offs and n_aligned), with fm_walk and banded_kernel<32>
+    launched once a shard; the dry runs pass on the card."""
+    from bowtie2_server_tpu_torch.ops import fm as dfm
+    from bowtie2_server_tpu_torch.parallel import mesh as tmesh
+    from bowtie2_server_tpu_torch.utils import dna
+    idx, _, seqs, _ = _workload(n=1024)
+    reads = np.stack([dna.encode(s) for s in seqs]).astype(np.uint8)
+    lens = np.full(len(seqs), 100, np.int32)
+    mmpen = np.full(reads.shape, 6, np.int32)
+    host = [torch.from_numpy(a) for a in (reads, lens, mmpen)]
+    got = []
+    for dev in ("cuda:0", "cpu"):
+        step = tmesh.make_sharded_step(tmesh.make_mesh(2, device=dev),
+                                       tsw.SwConfig(), 32)
+        kernels.reset_launches()
+        got.append([t.cpu() for t in step(
+            dfm.to_device(idx.fw, dev), torch.from_numpy(idx.joined).to(dev),
+            *host, -61)])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["sw_banded"] == 2
+            assert kernels.LAUNCHES["fm_walk"] == 2
+    for g, w in zip(*got):
+        assert torch.equal(g, w)
+    tmesh.dryrun_multichip(2, "cuda:0")
+    tmesh.dryrun_full_pipeline(2, "cuda:0")
+
+
+def test_mesh_over_cards(cuda_device):
+    """A mesh over every card (make_mesh()) writes one card's SAM, each
+    card launching its shard; and a --workers 1 server holds that mesh."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs at least two cards")
+    from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from bowtie2_server_tpu_torch.server.dispatch import make_device_groups
+    idx, names, seqs, quals = _workload()
+    batch = make_batch(names, seqs, quals)
+    mesh = make_mesh()
+    one = _sams(UnpairedAligner(idx, device="cuda:0").align_batch(batch),
+                idx.ref_names)
+    kernels.reset_launches()
+    got = _sams(UnpairedAligner(idx, mesh=mesh).align_batch(batch),
+                idx.ref_names)
+    assert got == one
+    assert kernels.LAUNCHES["sw_banded"] == mesh.size
+    groups = make_device_groups(1, "cuda")
+    assert len(groups) == 1 and isinstance(groups[0], Mesh)
+    assert groups[0].size == torch.cuda.device_count()
+
+
 def _cli_workload(tmp_path, n=1000):
     """_workload's genome saved as an index and n of its reads as FASTQ."""
     idx, names, seqs, quals = _workload(n=n)

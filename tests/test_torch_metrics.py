@@ -16,11 +16,8 @@ torch.set_num_threads(1)
 from bowtie2_server_tpu.__main__ import main as jax_main  # noqa: E402
 from bowtie2_server_tpu_torch.__main__ import main as port_main  # noqa
 from bowtie2_server_tpu_torch.io.metrics import PERF_COLUMNS  # noqa: E402
-from test_torch_cli import N_PAIRS, N_READS, inputs, run_both  # noqa
-
-# columns that are not counters: wall time, and memory peaks (the process's
-# RSS, and each package's own index and SA arrays)
-NOT_COUNTERS = {"Time", "MemPeak", "EbwtMemPeak", "ResolveMemPeak"}
+from test_torch_cli import (  # noqa
+    N_PAIRS, N_READS, NOT_COUNTERS, inputs, run_both)
 
 
 def tsv_counters(text):

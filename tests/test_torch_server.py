@@ -130,14 +130,33 @@ def test_device_groups_cards(monkeypatch, capsys, n_cards, n_workers, device,
     assert ("cuda:2" in err and "idle" in err) == (n_cards == 3)
 
 
-@pytest.mark.parametrize("n_cards,n_workers", [(2, 1), (4, 2), (8, 3)])
-def test_device_groups_mesh_refused(monkeypatch, n_cards, n_workers):
-    """A group of more than one card is the JAX server's 'dp' mesh, which
-    the port does not have yet."""
+@pytest.mark.parametrize("n_cards,n_workers,want,idle", [
+    (2, 1, [[0, 1]], []),
+    (4, 2, [[0, 1], [2, 3]], []),
+    (8, 3, [[0, 1], [2, 3], [4, 5]], [6, 7]),
+    (3, 2, [[0], [1]], [2]),
+])
+def test_device_groups_mesh_refused(monkeypatch, capsys, n_cards, n_workers,
+                                    want, idle):
+    """A group of more than one card is the JAX server's 'dp' mesh (it was
+    refused before the port had one): one worker over several cards gets
+    one mesh over all of them, N workers each cards // N, a Mesh when that
+    is more than one card and the card itself otherwise; the cards left
+    over are named idle on stderr."""
+    from bowtie2_server_tpu_torch.parallel.mesh import Mesh
     monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A item 13"):
-        make_device_groups(n_workers, "cuda")
+    got = make_device_groups(n_workers, "cuda")
+    assert len(got) == n_workers
+    for g, w in zip(got, want):
+        cards = [torch.device("cuda", k) for k in w]
+        if len(w) > 1:
+            assert isinstance(g, Mesh) and list(g.devices) == cards
+        else:
+            assert g == cards[0]
+    err = capsys.readouterr().err
+    assert ("idle" in err) == bool(idle)
+    for k in idle:
+        assert f"cuda:{k}" in err
 
 
 def test_device_groups_no_card(monkeypatch):

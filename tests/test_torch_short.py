@@ -101,7 +101,7 @@ def test_fused_short_packed_equal(genome, case, monkeypatch):
     np.testing.assert_array_equal(got, want)
     _assert_batch_results_equal(want, got, cfg, tcfg, B0, cfg.K)
     assert len(searches) == (0 if case == "n1" else cfg.R)
-    ctr = tcg.BatchResult(B0, got, tcfg, cfg.K).counters[0]
+    ctr = tcg.BatchResult(B0, got, tcfg, 1, cfg.K).counters[0]
     assert ctr[2] > 0 and ctr[3] > 0     # 1mm branches survived, both sides
 
 
