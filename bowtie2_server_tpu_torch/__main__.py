@@ -296,6 +296,7 @@ def cmd_align(args):
     from .io.metrics import AlnSummary, PerfMetrics
     from .io.sam import (parse_sam_opt_config, passthrough_line, sam_header,
                          sam_record)
+    from .utils import trace
 
     if args.ref_string:
         # --ref-string: a throwaway index of the given sequence (ref:
@@ -372,6 +373,10 @@ def cmd_align(args):
         return f
 
     t0 = time.time()
+    # -t reads its stage times from the recorder's spans
+    tracing = args.timing and not trace.enabled()
+    if tracing:
+        trace.enable(capacity=1 << 20)
     trim_to = (_parse_trim_to(args.trim_to) if args.trim_to is not None
                else None)
     fq_kw = dict(batch_size=args.batch, trim5=args.trim5, trim3=args.trim3,
@@ -469,8 +474,6 @@ def cmd_align(args):
         wire(al)
         if args.dp_log:
             al.dp_log = log_file(args.dp_log)
-        if args.timing:
-            al.timing = {}
         use_native = not (args.passthrough or args.xeq
                           or args.sam_append_comment or args.show_rand_seed
                           or args.omit_sec_seq or opt_flags
@@ -480,10 +483,14 @@ def cmd_align(args):
                             ticker, disp_names, args, use_native, un_f, al_f)
     dt = time.time() - t0
     if args.timing:
-        # ref: timer.h Timer blocks gated by -t/--time
-        for k, v in (getattr(al, "timing", None) or {}).items():
-            print(f"Time {k}: {v:.2f}s", file=sys.stderr)
+        # ref: timer.h Timer blocks gated by -t/--time; the unpaired
+        # aligner's stages only, as the JAX CLI prints them
+        if al is not None:
+            for k, v in _stage_times(trace.spans(t0)).items():
+                print(f"Time {k}: {v:.2f}s", file=sys.stderr)
         print(f"Overall time: {dt:.2f}s", file=sys.stderr)
+    if tracing:
+        trace.disable()
     if not args.quiet:
         summ.print_summary(sys.stderr)
     print(f"# {n} reads in {dt:.1f}s = {n/max(dt,1e-9):.0f} reads/s "
@@ -497,6 +504,24 @@ def cmd_align(args):
         bam_w.close()
     if args.S:
         out.close()
+
+
+# -t's stages: the recorder's span (utils/trace.py) and its label. The
+# fetch is the wall from the fetch call until a batch's output is on the
+# host: the card's remaining time plus the copy, not the enqueue; it
+# counts the refetches of a capacity escalation too
+STAGES = {"cg.fetch": "device_fetch", "up.rect": "dp"}
+
+
+def _stage_times(spans) -> dict:
+    """{label: seconds} of -t's stages over `spans`, in the order the
+    stages first ended."""
+    out: dict = {}
+    for sp in spans:
+        if sp.name in STAGES:
+            k = STAGES[sp.name]
+            out[k] = out.get(k, 0.0) + sp.s
+    return out
 
 
 def _align_unpaired(al, batches, out, write_rec, summ, ticker, disp_names,

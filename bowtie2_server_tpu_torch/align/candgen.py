@@ -64,6 +64,7 @@ from ..ops.fm import nonzero_fixed as _nonzero_fixed
 from ..ops.sw import NEG_INF, SwConfig
 from ..ops.sw_banded import banded_dp
 from ..parallel.mesh import device_scope, replicate
+from ..utils import trace
 
 INT32_MIN = -(1 << 31)
 
@@ -1258,10 +1259,18 @@ class CandGen:
         return self._launch(B0, cfg, dkm, packed, meta, mmtab)
 
     def _launch(self, B0, cfg, dkm, packed, meta, mmtab):
-        return (B0, cfg, _sharded_pipeline(cfg, self.devices, self._didx,
-                                           dkm, packed, meta,
-                                           self._mmtab(mmtab)))
+        with trace.span("cg.enqueue"):
+            return (B0, cfg, _sharded_pipeline(cfg, self.devices,
+                                               self._didx, dkm, packed, meta,
+                                               self._mmtab(mmtab)))
 
     def fetch(self, handle) -> BatchResult:
+        """Wait for a dispatch's shards and decode their output. Its span
+        counts the banded problems launched (C_max a shard) and the
+        interior ones among them (the counter row's DPEx, ctr[6])."""
         B0, cfg, shards = handle
-        return BatchResult(B0, _gather(shards), cfg, len(shards), self.K)
+        with trace.span("cg.fetch",
+                        launched=cfg.C_max * len(shards)) as sp:
+            res = BatchResult(B0, _gather(shards), cfg, len(shards), self.K)
+            sp.set(valid=int(res.counters[:, 6].sum()))
+        return res

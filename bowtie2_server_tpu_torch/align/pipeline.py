@@ -39,7 +39,6 @@ history).
 from __future__ import annotations
 
 import contextlib
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -50,7 +49,7 @@ from ..io.fastq import ReadBatch
 from ..ops import fm as dfm
 from ..ops.sw import NEG_INF, SwConfig, sw_align_batch
 from ..ops.sw_banded import banded_traceback, sw_banded_batch
-from ..utils import dna
+from ..utils import dna, trace
 from ..utils.scoring import Scoring
 from ..utils.simple_func import SimpleFunc, SQRT
 from .candgen import CandGen, per_len
@@ -556,7 +555,6 @@ class UnpairedAligner:
                                    self.device, mesh=mesh)
         self._rect_stream = None   # CUDA stream of the rect DPs (rect_stream)
         self.dp_log = None   # file handle: log DP problems (ref: --dp-log)
-        self.timing = None   # dict: stage wall-clock accumulation (ref: -t)
         # cumulative backtrace counters for the --met TSV (ref: SSEMetrics
         # bt/btfail/btsucc/btcell, aligner_sw_common.h:292-295; these count
         # the host traceback passes: attempts, rejects, commits, and path
@@ -646,19 +644,22 @@ class UnpairedAligner:
             # khits == 1 never yields extra records: run the general path
             # only for unhandled reads and return the lazy view — readers
             # that only need counts/arrays never build AlnRec objects
-            if getattr(st, "sel", None) is not None:
-                handled = self._finish_fast(st)
-                todo = np.nonzero(~handled)[0]
-            else:
-                todo = range(B)
-            for i in todo:
-                self._select_unpaired(st, i)
+            with trace.span("up.select", reads=B) as sp:
+                if getattr(st, "sel", None) is not None:
+                    handled = self._finish_fast(st)
+                    todo = np.nonzero(~handled)[0]
+                else:
+                    todo = range(B)
+                for i in todo:
+                    self._select_unpaired(st, i)
+                sp.set(slow=len(todo))
             return st.recs
         out = []
-        for i in range(B):
-            extras = self._select_unpaired(st, i)
-            out.append(st.recs[i])
-            out.extend(extras)
+        with trace.span("up.select", reads=B, slow=B):
+            for i in range(B):
+                extras = self._select_unpaired(st, i)
+                out.append(st.recs[i])
+                out.extend(extras)
         return out
 
     # ---- collect: fused device path with host fallback ----
@@ -706,15 +707,7 @@ class UnpairedAligner:
             _, batch, boost, seed_skip = handle
             return self._collect_host(batch, boost, seed_skip)
         _, batch, boost, seed_skip, h, meta = handle
-        tf = time.time()
         res = self.candgen.fetch(h)
-        if self.timing is not None:
-            # -t on the fused path: the wall from the fetch call until the
-            # batch's output is on the host (fetch synchronises on the
-            # batch's event first, so this is the card's remaining time plus
-            # the copy, not the enqueue; ref: timer.h Timer blocks)
-            self.timing["device_fetch"] = self.timing.get(
-                "device_fetch", 0.0) + (time.time() - tf)
         if res.overflow:
             # capacity escalation: re-run the same batch with 2x, then
             # 4x set sizes (and 16x for a big index) before giving up to
@@ -1463,63 +1456,61 @@ class UnpairedAligner:
             return (seqs[i, :rl],
                     mmtab[np.clip(quals[i, :rl], 0, 255)].astype(np.int32), rl)
 
-        t_dp = time.time()
-        if band_ids:
-            nb = len(band_ids)
-            rd_m = np.full((nb, L), 5, np.uint8)
-            mm_m = np.zeros((nb, L), np.int32)
-            band_m = np.full((nb, L + K), 4, np.uint8)
-            clens = np.zeros(nb, np.int32)
-            for bi_, ci in enumerate(band_ids):
-                rd, mm, rl = read_arrays(ci)
-                rd_m[bi_, :rl] = rd
-                mm_m[bi_, :rl] = mm
-                clens[bi_] = rl
-                ws = cands[ci][2] - c_half
-                band_m[bi_, : rl + K] = joined[ws : ws + rl + K]
-            b_best, b_bi, b_bk = sw_banded_batch(
-                rd_m, clens, mm_m, band_m, self.sw_cfg, K=K,
-                device=self.device)
-            for bi_, ci in enumerate(band_ids):
-                i = cands[ci][0]
-                ws = cands[ci][2] - c_half
-                best[ci] = int(b_best[bi_])
-                end_joined[ci] = ws + int(b_bi[bi_]) + int(b_bk[bi_])
-                fin_info[ci] = ("band", int(b_bi[bi_]), int(b_bk[bi_]),
-                                band_m[bi_, : int(lens[i]) + K], ws)
+        # the host path's banded and rectangular DP (-t: "Time dp")
+        with trace.span("up.rect"):
+            if band_ids:
+                nb = len(band_ids)
+                rd_m = np.full((nb, L), 5, np.uint8)
+                mm_m = np.zeros((nb, L), np.int32)
+                band_m = np.full((nb, L + K), 4, np.uint8)
+                clens = np.zeros(nb, np.int32)
+                for bi_, ci in enumerate(band_ids):
+                    rd, mm, rl = read_arrays(ci)
+                    rd_m[bi_, :rl] = rd
+                    mm_m[bi_, :rl] = mm
+                    clens[bi_] = rl
+                    ws = cands[ci][2] - c_half
+                    band_m[bi_, : rl + K] = joined[ws : ws + rl + K]
+                b_best, b_bi, b_bk = sw_banded_batch(
+                    rd_m, clens, mm_m, band_m, self.sw_cfg, K=K,
+                    device=self.device)
+                for bi_, ci in enumerate(band_ids):
+                    i = cands[ci][0]
+                    ws = cands[ci][2] - c_half
+                    best[ci] = int(b_best[bi_])
+                    end_joined[ci] = ws + int(b_bi[bi_]) + int(b_bk[bi_])
+                    fin_info[ci] = ("band", int(b_bi[bi_]), int(b_bk[bi_]),
+                                    band_m[bi_, : int(lens[i]) + K], ws)
 
-        if rect_ids:
-            nr = len(rect_ids)
-            lq = max(int(lens[cands[ci][0]]) for ci in rect_ids)
-            wmax = max(wr - wl for _, wl, wr in rect_geom)
-            lq = -(-lq // 64) * 64
-            wmax = -(-wmax // 128) * 128
-            rd_m = np.full((nr, lq), 5, np.uint8)
-            mm_m = np.zeros((nr, lq), np.int32)
-            ref_m = np.full((nr, wmax), 4, np.uint8)
-            clens = np.zeros(nr, np.int32)
-            wlens = np.zeros(nr, np.int32)
-            for ri, (ci, (rid, wl, wr)) in enumerate(zip(rect_ids,
-                                                         rect_geom)):
-                rd, mm, rl = read_arrays(ci)
-                rd_m[ri, :rl] = rd
-                mm_m[ri, :rl] = mm
-                clens[ri] = rl
-                ref_m[ri, : wr - wl] = self.idx.get_ref_stretch(rid, wl,
-                                                                wr - wl)
-                wlens[ri] = wr - wl
-            r_best, r_bi, r_bj = sw_align_batch(
-                rd_m, clens, mm_m, ref_m, wlens, self.sw_cfg,
-                device=self.device)
-            for ri, (ci, (rid, wl, wr)) in enumerate(zip(rect_ids,
-                                                         rect_geom)):
-                best[ci] = int(r_best[ri])
-                end_joined[ci] = wl + int(r_bj[ri])
-                fin_info[ci] = ("rectr", int(r_bi[ri]), int(r_bj[ri]),
-                                ref_m[ri, : wr - wl], (rid, wl))
-        if self.timing is not None:
-            self.timing["dp"] = self.timing.get("dp", 0.0) + \
-                (time.time() - t_dp)
+            if rect_ids:
+                nr = len(rect_ids)
+                lq = max(int(lens[cands[ci][0]]) for ci in rect_ids)
+                wmax = max(wr - wl for _, wl, wr in rect_geom)
+                lq = -(-lq // 64) * 64
+                wmax = -(-wmax // 128) * 128
+                rd_m = np.full((nr, lq), 5, np.uint8)
+                mm_m = np.zeros((nr, lq), np.int32)
+                ref_m = np.full((nr, wmax), 4, np.uint8)
+                clens = np.zeros(nr, np.int32)
+                wlens = np.zeros(nr, np.int32)
+                for ri, (ci, (rid, wl, wr)) in enumerate(zip(rect_ids,
+                                                             rect_geom)):
+                    rd, mm, rl = read_arrays(ci)
+                    rd_m[ri, :rl] = rd
+                    mm_m[ri, :rl] = mm
+                    clens[ri] = rl
+                    ref_m[ri, : wr - wl] = self.idx.get_ref_stretch(rid, wl,
+                                                                    wr - wl)
+                    wlens[ri] = wr - wl
+                r_best, r_bi, r_bj = sw_align_batch(
+                    rd_m, clens, mm_m, ref_m, wlens, self.sw_cfg,
+                    device=self.device)
+                for ri, (ci, (rid, wl, wr)) in enumerate(zip(rect_ids,
+                                                             rect_geom)):
+                    best[ci] = int(r_best[ri])
+                    end_joined[ci] = wl + int(r_bj[ri])
+                    fin_info[ci] = ("rectr", int(r_bi[ri]), int(r_bj[ri]),
+                                    ref_m[ri, : wr - wl], (rid, wl))
         if self.dp_log is not None:
             for ci in range(C):
                 if fin_info[ci] is None:

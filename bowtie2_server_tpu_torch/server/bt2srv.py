@@ -41,6 +41,7 @@ from ..align.pipeline import SearchPolicy
 from ..io.fastq import make_batch
 from ..io.sam import sam_record
 from ..parallel.mesh import Mesh, device_scope
+from ..utils import trace
 from ..utils.presets import preset_params
 
 VERSION = "2.5.4"
@@ -148,9 +149,12 @@ class Bt2Server:
         # the worker thread's current card is its group's first (a new
         # thread starts on card 0): the rect DP and mate rescue run there;
         # a mesh's shards enter their own cards
-        with device_scope(up.device):
-            out = _align_rows(up, pal, rows, ref_names)
-        return ("\n".join(out) + "\n").encode()
+        with trace.span("srv.pack") as sp, device_scope(up.device):
+            recs, n = _row_records(up, pal, rows)
+            sp.set(reads=n)
+            with trace.span("srv.sam"):
+                return ("\n".join(_sam_lines(recs, ref_names))
+                        + "\n").encode()
 
     # ---- connection handling ----
 
@@ -235,17 +239,30 @@ class Bt2Server:
                 writer.write(data)
                 await writer.drain()
 
+        def parse() -> bool:
+            """Rows from the complete lines received, until a pack is
+            full (True) or no complete line is left (False)."""
+            nonlocal pending_lines
+            n0 = len(rows)
+            with trace.span("srv.parse") as sp:
+                full = False
+                while b"\n" in pending_lines:
+                    line, pending_lines = pending_lines.split(b"\n", 1)
+                    line = line.rstrip(b"\r")
+                    if not line:
+                        continue
+                    rows.append(_parse_tab6(line))
+                    if len(rows) >= self.batch_size:
+                        full = True
+                        break
+                sp.set(reads=len(rows) - n0)
+            return full
+
         async def feed(data: bytes):
-            nonlocal pending_lines, rows
+            nonlocal pending_lines
             pending_lines += data
-            while b"\n" in pending_lines:
-                line, pending_lines = pending_lines.split(b"\n", 1)
-                line = line.rstrip(b"\r")
-                if not line:
-                    continue
-                rows.append(_parse_tab6(line))
-                if len(rows) >= self.batch_size:
-                    await flush()
+            while parse():
+                await flush()
 
         if chunked:
             while True:
@@ -288,17 +305,20 @@ class Bt2Server:
 
 def _align_rows(up, pal, rows, ref_names) -> list[str]:
     """The SAM lines and END READ markers of one pack, in row order."""
-    out = []
+    return _sam_lines(_row_records(up, pal, rows)[0], ref_names)
+
+
+def _row_records(up, pal, rows) -> tuple[list[list], int]:
+    """Each row's AlnRecs (a read's one, a pair's two), in row order, and
+    the pack's reads, a mate counting as one."""
     paired_rows = [r for r in rows if r[3] is not None]
     unpaired_rows = [r for r in rows if r[3] is None]
-    results: dict[int, list] = {}
+    recs = pairs = ()
     if unpaired_rows:
         b = make_batch([r[0] for r in unpaired_rows],
                        [r[1] for r in unpaired_rows],
                        [r[2] for r in unpaired_rows])
         recs = up.align_batch(b)
-        for row, rec in zip(unpaired_rows, recs):
-            results[id(row)] = [rec]
     if paired_rows:
         b1 = make_batch([_strip_mate(r[0]) for r in paired_rows],
                         [r[1] for r in paired_rows],
@@ -307,10 +327,23 @@ def _align_rows(up, pal, rows, ref_names) -> list[str]:
                         [r[4] for r in paired_rows],
                         [r[5] for r in paired_rows])
         pairs = pal.align_batch(b1, b2)
+    # the aligners' results are lazy: the AlnRecs (LazyRecs.__getitem__,
+    # FastSoA.fill and its MD strings) are built here
+    with trace.span("srv.records"):
+        results: dict[int, list] = {}
+        for row, rec in zip(unpaired_rows, recs):
+            results[id(row)] = [rec]
         for row, (r1, r2) in zip(paired_rows, pairs):
             results[id(row)] = [r1, r2]
-    for row in rows:
-        recs = results[id(row)]
+        return ([results[id(row)] for row in rows],
+                len(unpaired_rows) + 2 * len(paired_rows))
+
+
+def _sam_lines(row_recs, ref_names) -> list[str]:
+    """The SAM lines of each row's records (`_row_records`), each row's
+    followed by its END READ marker."""
+    out = []
+    for recs in row_recs:
         for rec in recs:
             out.append(sam_record(rec, ref_names))
         # end-of-read marker (ref: aln_sink.cpp:2159): paired reads use

@@ -15,12 +15,15 @@ deterministic (the OutputQueue role, outq.h:38).
 """
 from __future__ import annotations
 
+import itertools
 import sys
 import threading
 from collections import OrderedDict, deque
 from concurrent.futures import Future
 
 import torch
+
+from ..utils import trace
 
 
 class AlignDispatcher:
@@ -35,6 +38,7 @@ class AlignDispatcher:
         self._queues: "OrderedDict[int, deque]" = OrderedDict()
         self._rr: deque[int] = deque()
         self._stop = False
+        self._packs = itertools.count(1)   # pack identifiers (trace spans)
         self._threads = [
             threading.Thread(target=self._run, args=(w,), daemon=True,
                              name=f"bt2srv-worker-{k}")
@@ -49,22 +53,16 @@ class AlignDispatcher:
     def submit(self, conn_id: int, fn, *args) -> Future:
         """Enqueue one pack for `conn_id`; returns its Future."""
         fut: Future = Future()
+        item = (fn, args, fut, next(self._packs), trace.now())
         with self._lock:
             q = self._queues.get(conn_id)
             if q is None:
                 q = deque()
                 self._queues[conn_id] = q
                 self._rr.append(conn_id)
-            q.append((fn, args, fut))
+            q.append(item)
             self._lock.notify()
         return fut
-
-    def close_connection(self, conn_id: int) -> None:
-        """Drop a finished connection from the round-robin (queued packs
-        still complete)."""
-        # nothing to do eagerly: empty queues are garbage-collected by
-        # _next_item; kept as an explicit API for symmetry/diagnostics
-        return None
 
     def _next_item(self):
         """Round-robin pop: one pack from the next connection that has
@@ -88,16 +86,22 @@ class AlignDispatcher:
         while True:
             with self._lock:
                 item = self._next_item()
-                while item is None and not self._stop:
-                    self._lock.wait()
-                    item = self._next_item()
+                if item is None and not self._stop:
+                    with trace.span("srv.idle"):
+                        while item is None and not self._stop:
+                            self._lock.wait()
+                            item = self._next_item()
                 if self._stop and item is None:
                     return
-            fn, args, fut = item
+            fn, args, fut, pack, t_submit = item
+            trace.set_pack(pack)
+            trace.record("srv.queue", t_submit)
             try:
                 fut.set_result(fn(worker, *args))
             except BaseException as e:   # surface to the awaiting handler
                 fut.set_exception(e)
+            finally:
+                trace.set_pack(None)
 
     def shutdown(self):
         with self._lock:

@@ -1038,40 +1038,37 @@ def srv_clients(port, loads):
     return outs, max(ends) - t0
 
 
-def srv_timers(srv):
-    """Host seconds the server's worker spends in whole packs and, inside
-    them, in the aligners' align_batch (the rest of a pack is building
-    its batches and formatting SAM records); the timers wrap the bound
-    methods of this server instance only."""
-    t = {"packs": 0.0, "align": 0.0}
-
-    def timed(fn, key):
-        def run(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                t[key] += time.perf_counter() - t0
-        return run
-
-    srv._align_pack = timed(srv._align_pack, "packs")
-    srv.up.align_batch = timed(srv.up.align_batch, "align")
-    srv.pal.align_batch = timed(srv.pal.align_batch, "align")
-    return t
+def srv_timers():
+    """Turns the port's span recorder on (utils/trace.py); returns the
+    wall-clock time from which srv_breakdown reads its spans."""
+    from bowtie2_server_tpu_torch.utils import trace
+    trace.enable()
+    return time.time()
 
 
-def srv_breakdown(label, t, wall):
-    """Logs and returns the worker's share of the load's wall time."""
-    out = dict(worker_s=t["packs"], align_s=t["align"],
-               worker_share=t["packs"] / wall,
-               align_share=t["align"] / wall,
-               pack_other_share=(t["packs"] - t["align"]) / wall)
+def srv_breakdown(label, t0, wall):
+    """Logs and returns the worker's share of the load's wall time, from
+    the recorder's spans since t0: whole packs (`srv.pack`), inside them
+    the records taken out of the aligners' results (`srv.records`) and the
+    SAM text (`srv.sam`); the rest of a pack is building its batches and
+    the aligners, of which the wait on the card's output (`cg.fetch`)."""
+    from bowtie2_server_tpu_torch.utils import trace
+    tot = {}
+    for sp in trace.spans(t0):
+        tot[sp.name] = tot.get(sp.name, 0.0) + sp.s
+    packs = tot.get("srv.pack", 0.0)
+    fmt = tot.get("srv.records", 0.0) + tot.get("srv.sam", 0.0)
+    fetch = tot.get("cg.fetch", 0.0)
+    out = dict(worker_s=packs, format_s=fmt, fetch_s=fetch,
+               worker_share=packs / wall, format_share=fmt / wall,
+               align_share=(packs - fmt) / wall)
     log(f"server ({label}) load: the worker thread in packs "
-        f"{t['packs']:.3f} s of {wall:.3f} s wall ({out['worker_share']:.4f}"
-        f"): the aligners' align_batch {t['align']:.3f} s "
-        f"({out['align_share']:.4f}), batch building and SAM formatting "
-        f"{t['packs'] - t['align']:.3f} s ({out['pack_other_share']:.4f}); "
-        f"the rest of the wall is parsing, client work and waiting")
+        f"{packs:.3f} s of {wall:.3f} s wall ({out['worker_share']:.4f}): "
+        f"records and SAM text {fmt:.3f} s ({out['format_share']:.4f}), "
+        f"batch building and the aligners {packs - fmt:.3f} s "
+        f"({out['align_share']:.4f}; the wait on the card's output "
+        f"{fetch:.3f} s); the rest of the wall is parsing, client work and "
+        f"waiting")
     return out
 
 
@@ -1138,7 +1135,7 @@ def phase_server(base, contigs, pbase, chroms):
                 names = [f"c{c}r{i}" for i in range(SRV_READS)]
                 loads.append(list(zip(names, seqs, quals)))
                 origins.append(dict(zip(names, zip(cid, st, fw))))
-            timers = srv_timers(srv)
+            timers = srv_timers()
             lines, wall = srv_clients(port, loads)
             torch.cuda.synchronize()
             launches = dict(kernels.LAUNCHES)
@@ -1179,7 +1176,7 @@ def phase_server(base, contigs, pbase, chroms):
                 names = [f"c{c}p{i}" for i in range(SRV_PAIRS)]
                 loads.append(list(zip(names, s1, quals, names, s2, quals)))
                 origins.append(dict(zip(names, zip(ci, st1, st2))))
-            timers = srv_timers(srv)
+            timers = srv_timers()
             lines, wall = srv_clients(port, loads)
             torch.cuda.synchronize()
             plaunches = dict(kernels.LAUNCHES)

@@ -149,6 +149,41 @@ def test_sw_kernel_equals_plain(name, lq_pad, tile, cuda_device):
         assert torch.equal(g, w)
 
 
+def test_span_encloses_banded_kernel_on_profiler_clock(cuda_device):
+    """The span recorder and a torch.profiler trace share one clock: a span
+    around a banded_dp launch and the synchronize after it holds, within
+    1 ms, the interval of each kernel the launch ran, placed on the epoch
+    by the benchmark's rule (portbench/yardstick.Trace: the trace's
+    start_ns plus each event's offset)."""
+    from torch.profiler import ProfilerActivity, profile
+    from bowtie2_server_tpu_torch.utils import trace
+    from portbench.yardstick import Trace
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in banded_tile(7, 100, 64)]
+    cfg = tsw.SwConfig(**CFGS["e2e"])
+    tsb.banded_dp(cfg, 64, *args)       # builds the kernel
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.zeros(1, device=cuda_device).add_(1)
+    trace.disable()
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with trace.span("launch"):
+                tsb.banded_dp(cfg, 64, *args)
+                torch.cuda.synchronize()
+        (sp,) = [s for s in trace.spans() if s.name == "launch"]
+    finally:
+        trace.disable()
+    tr = Trace(prof, sp.t0 - 1.0, sp.t1 + 1.0)
+    evs = [(tr.origin + a / 1e6, tr.origin + b / 1e6)
+           for name, _, a, b in tr.events
+           if "banded_kernel<" in name or "banded_general_kernel" in name]
+    assert len(evs) == 2
+    for a, b in evs:
+        assert sp.t0 - 1e-3 <= a < b <= sp.t1 + 1e-3, (sp.t0, a, b, sp.t1)
+
+
 def test_banded_kernel_refuses_unbuilt_band(cuda_device):
     args = [torch.from_numpy(a).to(cuda_device)
             for a in banded_tile(1, 20, 2048)]

@@ -1,0 +1,224 @@
+"""The port's span recorder (bowtie2_server_tpu_torch/utils/trace.py) on the
+CPU: off it records nothing, its ring keeps its bound, `spans(t0, t1)`
+keeps the spans inside the interval; a round trip to a CPU `Bt2Server`
+over the socket gives each pack one queue, pack, records and SAM span,
+nested on the worker's thread, whose packs' reads add up to the reads
+sent; the fetch spans' interior DP problems equal the `--met` TSV's; and
+-t prints its stage times from the recorder."""
+import time
+from collections import Counter
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# the test workers share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
+from bowtie2_server_tpu_torch.__main__ import main as port_main  # noqa
+from bowtie2_server_tpu_torch.index.build import build_index  # noqa: E402
+from bowtie2_server_tpu_torch.server import bt2srv  # noqa: E402
+from bowtie2_server_tpu_torch.utils import dna, trace  # noqa: E402
+from torch_serving import raw_request, serving, tab6_line  # noqa: E402
+
+CHROM_LEN = 30_000
+READ_LEN = 100
+BATCH = 64          # the test server's pack size: a request spans packs
+
+
+@pytest.fixture
+def recorder():
+    """The recorder on, with a ring of its own; off again after."""
+    trace.disable()
+    trace.enable()
+    yield trace
+    trace.disable()
+
+
+def test_off_records_nothing():
+    trace.disable()
+    before = trace.spans()
+    sp = trace.span("x", reads=3)
+    assert sp is trace.span("y")
+    with sp as s:
+        s.set(slow=1)
+    trace.record("z", trace.now())
+    assert trace.now() == 0
+    assert trace.spans() == before
+    assert not trace.enabled()
+
+
+def test_ring_keeps_its_bound():
+    trace.disable()
+    trace.enable(capacity=8)
+    try:
+        for k in range(20):
+            with trace.span("s", k=k):
+                pass
+        got = trace.spans()
+        assert [s.attrs["k"] for s in got] == list(range(12, 20))
+    finally:
+        trace.disable()
+
+
+def test_spans_keeps_the_interval(recorder):
+    with trace.span("before"):
+        time.sleep(0.002)
+    t0 = time.time()
+    with trace.span("inside") as sp:
+        time.sleep(0.002)
+        sp.set(n=1)
+    with trace.span("straddles"):
+        time.sleep(0.002)
+        t1 = time.time()
+        time.sleep(0.002)
+    with trace.span("after"):
+        pass
+    names = [s.name for s in trace.spans(t0, t1)]
+    assert names == ["inside"]
+    (s,) = trace.spans(t0, t1)
+    assert s.attrs == {"n": 1} and s.pack is None
+    assert 0.002 <= s.s < 1 and 0 <= s.cpu_s <= s.s + 0.01
+    assert t0 <= s.t0 < s.t1 <= t1
+
+
+def test_pack_and_record(recorder):
+    """set_pack's identifier rides the spans of its thread; record() closes
+    a span another thread opened, with no CPU time."""
+    start = trace.now()
+    trace.set_pack(7)
+    try:
+        trace.record("q", start)
+        with trace.span("inner"):
+            pass
+    finally:
+        trace.set_pack(None)
+    with trace.span("outside"):
+        pass
+    got = {s.name: s for s in trace.spans()}
+    assert got["q"].pack == 7 and got["q"].cpu_s is None
+    assert got["q"].attrs == {}
+    assert got["inner"].pack == 7 and got["outside"].pack is None
+
+
+@pytest.fixture(scope="module")
+def genome(tmp_path_factory):
+    """Two chromosomes: the codes, the index base and a FASTQ of reads cut
+    from them with a few substitutions."""
+    rng = np.random.default_rng(5)
+    chroms = [rng.integers(0, 4, CHROM_LEN).astype(np.uint8)
+              for _ in range(2)]
+    d = tmp_path_factory.mktemp("torch_trace")
+    fa = d / "genome.fa"
+    fa.write_text("".join(f">chr{i}\n{dna.decode(c)}\n"
+                          for i, c in enumerate(chroms)))
+    build_index(str(fa)).save(str(d / "genome"))
+    return chroms, str(d / "genome"), d
+
+
+def make_reads(chroms, n, seed):
+    """n (name, seq, qual) of READ_LEN bp, either strand, 0-3 mismatches."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        c = chroms[k % len(chroms)]
+        st = int(rng.integers(0, len(c) - READ_LEN))
+        r = c[st : st + READ_LEN].copy()
+        for p in rng.choice(READ_LEN, int(rng.integers(0, 4)), False):
+            r[p] = (r[p] + 1) % 4
+        if k % 2:
+            r = (3 - r)[::-1]
+        out.append((f"r{k}", dna.decode(r), "I" * READ_LEN))
+    return out
+
+
+def test_server_round_trip_spans(genome, recorder):
+    chroms, base, _ = genome
+    reads = make_reads(chroms, 2 * BATCH + 22, 1)
+    srv = bt2srv.Bt2Server(base, batch_size=BATCH, device="cpu")
+    try:
+        with serving(srv) as port:
+            t0 = time.time()
+            _, body = raw_request(port, [tab6_line((n, s, q, None))
+                                         for n, s, q in reads])
+            t1 = time.time()
+    finally:
+        srv.close()
+    assert body.endswith(b"@CO BT2SRV All Done\n")
+    assert body.count(b"@CO END READ\t") == len(reads)
+    got = trace.spans(t0, t1)
+    parse = [s for s in got if s.name == "srv.parse"]
+    assert sum(s.attrs["reads"] for s in parse) == len(reads)
+    assert all(s.pack is None for s in parse)
+    by_pack: dict = {}
+    for s in got:
+        if s.pack is not None:
+            by_pack.setdefault(s.pack, []).append(s)
+    assert len(by_pack) == 3
+    reads_in = {}
+    for pack, sps in by_pack.items():
+        one = {s.name: s for s in sps if s.name.startswith("srv.")}
+        assert Counter(s.name for s in sps if s.name.startswith("srv.")) \
+            == Counter(["srv.queue", "srv.pack", "srv.records", "srv.sam"])
+        q, p, r, m = (one[k] for k in ("srv.queue", "srv.pack",
+                                       "srv.records", "srv.sam"))
+        # all on the worker's thread, nested in the pack
+        assert len({s.thread for s in sps}) == 1
+        assert q.t1 <= p.t0 and q.cpu_s is None
+        assert p.t0 <= r.t0 <= r.t1 <= m.t0 <= m.t1 <= p.t1
+        for s in sps:
+            if s is not p and s is not q:
+                assert p.t0 <= s.t0 and s.t1 <= p.t1, s.name
+        assert r.attrs == m.attrs == {}
+        reads_in[pack] = p.attrs["reads"]
+        # the aligner's spans of the pack, inside it
+        names = Counter(s.name for s in sps)
+        assert names["cg.enqueue"] >= 1 and names["cg.fetch"] >= 1
+        assert next(s for s in sps if s.name == "cg.enqueue").attrs == {}
+        assert names["up.select"] == 1
+        sel = next(s for s in sps if s.name == "up.select")
+        assert 0 <= sel.attrs["slow"] <= sel.attrs["reads"] \
+            == p.attrs["reads"]
+    assert sum(reads_in.values()) == len(reads)
+    # the worker waited for packs between requests, outside any pack
+    idle = [s for s in trace.spans() if s.name == "srv.idle"]
+    assert idle and all(s.pack is None for s in idle)
+
+
+def test_fetch_valid_equals_met_dpex(genome, tmp_path, recorder):
+    """cg.fetch's interior problems over a CLI run equal the --met TSV's
+    DP16ExDps (DPEx) for the same reads."""
+    chroms, base, _ = genome
+    reads = make_reads(chroms, 300, 2)
+    fq = tmp_path / "r.fq"
+    fq.write_text("".join(f"@{n}\n{s}\n+\n{q}\n" for n, s, q in reads))
+    t0 = time.time()
+    port_main(["align", "-x", base, "-U", str(fq), "-S",
+               str(tmp_path / "o.sam"), "--batch", "128", "--met-file",
+               str(tmp_path / "met.tsv"), "--met-read", "--device", "cpu"])
+    fetches = [s for s in trace.spans(t0) if s.name == "cg.fetch"]
+    assert len(fetches) == 3
+    lines = (tmp_path / "met.tsv").read_text().splitlines()
+    col = lines[0].split("\t").index("DP16ExDps")
+    dpex = int(lines[-1].split("\t")[col])
+    assert dpex > 0
+    assert sum(s.attrs["valid"] for s in fetches) == dpex
+    assert all(s.attrs["valid"] <= s.attrs["launched"] for s in fetches)
+
+
+def test_t_prints_stage_times_and_leaves_recorder_off(genome, tmp_path,
+                                                       capsys):
+    """-t turns the recorder on for the run and off after it."""
+    chroms, base, _ = genome
+    reads = make_reads(chroms, 50, 3)
+    fq = tmp_path / "r.fq"
+    fq.write_text("".join(f"@{n}\n{s}\n+\n{q}\n" for n, s, q in reads))
+    trace.disable()
+    capsys.readouterr()
+    port_main(["align", "-x", base, "-U", str(fq), "-S",
+               str(tmp_path / "o.sam"), "-t", "--device", "cpu"])
+    err = capsys.readouterr().err
+    times = [ln.split(":")[0] for ln in err.splitlines()
+             if ln.startswith(("Time ", "Overall time"))]
+    assert times == ["Time device_fetch", "Overall time"]
+    assert not trace.enabled()
