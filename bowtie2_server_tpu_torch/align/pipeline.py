@@ -48,7 +48,8 @@ from ..index.fm import FmIndex
 from ..io.fastq import ReadBatch
 from ..ops import fm as dfm
 from ..ops.sw import NEG_INF, SwConfig, sw_align_batch
-from ..ops.sw_banded import banded_traceback, sw_banded_batch
+from ..ops.sw_banded import (banded_traceback, banded_traceback_batch,
+                              sw_banded_batch)
 from ..utils import dna, trace
 from ..utils.scoring import Scoring
 from ..utils.simple_func import SimpleFunc, SQRT
@@ -560,6 +561,9 @@ class UnpairedAligner:
         # the host traceback passes: attempts, rejects, commits, and path
         # cells walked)
         self.bt_ctr = {"bt": 0, "btfail": 0, "btsucc": 0, "btcell": 0}
+        # of those passes, the band tracebacks the CUDA kernel ran
+        # (_finish_gapped), for the up.select span's tb_card
+        self.tb_card = 0
         # per-read-length gap-budget cache for tallyGappedDp (_build_state)
         self._gapclass_cache: dict[int, int] = {}
         self.want_met = False   # --met consumer attached: collect the
@@ -645,6 +649,7 @@ class UnpairedAligner:
             # only for unhandled reads and return the lazy view — readers
             # that only need counts/arrays never build AlnRec objects
             with trace.span("up.select", reads=B) as sp:
+                bt0, card0 = self.bt_ctr["bt"], self.tb_card
                 if getattr(st, "sel", None) is not None:
                     handled = self._finish_fast(st)
                     todo = np.nonzero(~handled)[0]
@@ -652,14 +657,19 @@ class UnpairedAligner:
                     todo = range(B)
                 for i in todo:
                     self._select_unpaired(st, i)
-                sp.set(slow=len(todo))
+                # tb: the band and rect tracebacks of the batch; tb_card:
+                # those the CUDA kernel ran
+                sp.set(slow=len(todo), tb=self.bt_ctr["bt"] - bt0,
+                       tb_card=self.tb_card - card0)
             return st.recs
         out = []
-        with trace.span("up.select", reads=B, slow=B):
+        with trace.span("up.select", reads=B, slow=B) as sp:
+            bt0 = self.bt_ctr["bt"]
             for i in range(B):
                 extras = self._select_unpaired(st, i)
                 out.append(st.recs[i])
                 out.extend(extras)
+            sp.set(tb=self.bt_ctr["bt"] - bt0, tb_card=0)
         return out
 
     # ---- collect: fused device path with host fallback ----
@@ -1068,14 +1078,15 @@ class UnpairedAligner:
         mapqs = mapq_batch(self.mapq_v, score, sec_eff, has_sec | exact_rule,
                            st.minsc[w], st.perfect[w], self.sc.monotone)
 
-        for t in np.nonzero(~ungapped)[0]:
-            # rare: gapped or local winner — per-read traceback path
-            i = int(w[t])
-            sec = (int(res.sec_sc[i]) if has_sec[t]
-                   else (int(st.perfect[i]) if exact_rule[t] else None))
-            if self.finish_candidate(st, i, int(res.best_ci[i]),
-                                     int(score[t]), sec):
-                handled[i] = True
+        g = np.nonzero(~ungapped)[0]
+        if len(g):
+            # rare end-to-end, every winner in --local: gapped or local
+            # winners, traced together (_finish_gapped)
+            secs = [int(res.sec_sc[w[t]]) if has_sec[t]
+                    else (int(st.perfect[w[t]]) if exact_rule[t] else None)
+                    for t in g]
+            ok = self._finish_gapped(st, w[g], score[g], secs)
+            handled[w[g][ok]] = True
 
         # vectorized commit of the ungapped winners: store column arrays;
         # AlnRec objects materialize lazily (LazyRecs/FastSoA), and the
@@ -1092,6 +1103,52 @@ class UnpairedAligner:
             handled[wu] = True
             st.recs.soa = soa
         return handled
+
+    def _finish_gapped(self, st, reads, scores, secs) -> np.ndarray:
+        """Trace and commit the fused winners of `reads` that the device did
+        not certify ungapped: the per-read `finish_candidate` of each (the
+        same rows and windows, from st.read_arrays and st.fin_info), with
+        the tracebacks of all of them in one `banded_traceback_batch` call
+        (the CUDA kernel on a card; on the rect side stream, which does not
+        wait for the fused batches in flight). Returns the [n] mask of the
+        reads committed; a rejected read stays for the per-read loop."""
+        K = self.band
+        cis = st.res.best_ci[reads].tolist()
+        rows = [st.read_arrays(ci) for ci in cis]   # (rd, mm, rl)
+        fins = [st.fin_info[ci] for ci in cis]   # (kind, bi, bk, window, ws)
+        traces = [self._ungapped_band(rl, int(sc), bi, bk, rd, mm, window)
+                  for (rd, mm, rl), (_, bi, bk, window, _), sc
+                  in zip(rows, fins, scores)]
+        need = [t for t, tr in enumerate(traces) if tr is None]
+        if need:
+            lens = np.array([rows[t][2] for t in need], np.int64)
+            L = int(lens.max())
+            rd = np.zeros((len(need), L), np.uint8)
+            mm = np.zeros((len(need), L), np.int32)
+            band = np.full((len(need), L + K), 4, np.uint8)
+            for r, t in enumerate(need):
+                s, q, rl = rows[t]
+                rd[r, :rl], mm[r, :rl] = s, q
+                band[r, : len(fins[t][3])] = fins[t][3]
+            bi = np.array([fins[t][1] for t in need], np.int64)
+            bk = np.array([fins[t][2] for t in need], np.int64)
+            with self.rect_stream():
+                got, on_card = banded_traceback_batch(
+                    rd, mm, band, lens, bi, bk, self.sw_cfg, K,
+                    device=self.device)
+            self.tb_card += int(on_card.sum())
+            for t, (edits, start_col, read_start) in zip(need, got):
+                traces[t] = (edits, start_col, read_start, fins[t][1] + 1,
+                             True)
+        ok = np.zeros(len(reads), bool)
+        for t, i in enumerate(reads.tolist()):
+            kind, _, _, window, wstart = fins[t]
+            ok[t] = self._commit(
+                st.recs[i], i, st.cands[cis[t]][1], rows[t][2],
+                int(scores[t]), secs[t], kind, window, wstart,
+                int(st.minsc[i]), int(st.perfect[i]), int(st.nceil[i]),
+                traces[t])
+        return ok
 
     def _soa_from_best(self, st, wu, fw, ref_id, pos, score, sec_has, sec,
                        mapq, nm, rl, jp) -> FastSoA:
@@ -1662,30 +1719,46 @@ class UnpairedAligner:
         row/col for kind='rect'); window: ref codes starting at joined
         position wstart. Returns False if the candidate must be rejected
         (run straddle or N-ceiling), so the caller can try the next one."""
+        return self._commit(rec, i, is_fw, rl, bsc, sec, kind, window,
+                            wstart, msc, per, nc,
+                            self._trace(rl, bsc, kind, bi, bk, rd, mm,
+                                        window))
+
+    def _ungapped_band(self, rl, bsc, bi, bk, rd, mm, window):
+        """The trace of a band winner that is the pure diagonal along band
+        offset bk (end-to-end, ending in the last row, with its score), or
+        None where it needs a traceback."""
+        if not self.sw_cfg.local and bi == rl - 1 and \
+                ungapped_score(rd, mm, window, bk, self.sw_cfg) == bsc:
+            return edits_from_ungapped(rd[:rl], window, bk), bk, 0, rl, False
+        return None
+
+    def _trace(self, rl, bsc, kind, bi, bk, rd, mm, window):
+        """(edits, start_col, read_start, read_end, tb) of one winner on the
+        host: tb, whether a real traceback pass ran (the bt metrics)."""
         cfg = self.sw_cfg
-        read_start, read_end = 0, rl
-        tb = False   # a real traceback pass ran (counts toward bt metrics)
         if kind == "band":
-            # fast path: pure-diagonal alignment along band offset bk
-            if not cfg.local and bi == rl - 1 and \
-                    ungapped_score(rd, mm, window, bk, cfg) == bsc:
-                edits = edits_from_ungapped(rd[:rl], window, bk)
-                start_col = bk
-            else:
-                tb = True
-                edits, start_col, read_start = banded_traceback(
-                    rd[:rl], mm, window, cfg, bi, bk, K=self.band)
-                read_end = bi + 1
-        else:
-            start_col = bk - (rl - 1)
-            if not cfg.local and start_col >= 0 and \
-                    ungapped_score(rd, mm, window, start_col, cfg) == bsc:
-                edits = edits_from_ungapped(rd[:rl], window, start_col)
-            else:
-                tb = True
-                edits, start_col, read_start = rect_traceback(
-                    rd[:rl], mm, window, cfg, bi, bk)
-                read_end = bi + 1
+            tr = self._ungapped_band(rl, bsc, bi, bk, rd, mm, window)
+            if tr is not None:
+                return tr
+            edits, start_col, read_start = banded_traceback(
+                rd[:rl], mm, window, cfg, bi, bk, K=self.band)
+            return edits, start_col, read_start, bi + 1, True
+        start_col = bk - (rl - 1)
+        if not cfg.local and start_col >= 0 and \
+                ungapped_score(rd, mm, window, start_col, cfg) == bsc:
+            return (edits_from_ungapped(rd[:rl], window, start_col),
+                    start_col, 0, rl, False)
+        edits, start_col, read_start = rect_traceback(
+            rd[:rl], mm, window, cfg, bi, bk)
+        return edits, start_col, read_start, bi + 1, True
+
+    def _commit(self, rec: AlnRec, i, is_fw, rl, bsc, sec, kind, window,
+                wstart, msc, per, nc, tr) -> bool:
+        """Commit a winner's trace `tr` (_trace's tuple) into rec: CIGAR/MD
+        stats, the N ceiling, the run-straddle rejection, the record's
+        fields and MAPQ, the bt metrics. Returns False if rejected."""
+        edits, start_col, read_start, read_end, tb = tr
         if tb:
             bc = self.bt_ctr
             bc["bt"] += 1

@@ -33,8 +33,8 @@ _FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # kernel name -> launches since the last reset_launches(); bt2_sw_banded
 # launches two kernels, counted as sw_banded and sw_banded_general
 LAUNCHES = {"sw_banded": 0, "sw_banded_general": 0, "sw_banded_wide": 0,
-            "sw": 0, "alu_probe": 0, "fm_walk": 0, "fm_lf_step": 0,
-            "fm_resolve": 0}
+            "sw_banded_tb": 0, "sw": 0, "alu_probe": 0, "fm_walk": 0,
+            "fm_lf_step": 0, "fm_resolve": 0}
 
 _LIB = None
 
@@ -107,6 +107,8 @@ def lib():
         for fn in (lb.bt2_sw_banded, lb.bt2_sw_banded_wide):
             fn.restype = ci
             fn.argtypes = [vp] * 7 + [ci, ci, ci] + cfg + [ci, vp]
+        lb.bt2_sw_banded_tb.restype = ci
+        lb.bt2_sw_banded_tb.argtypes = [vp] * 9 + [ci] * 4 + cfg + [ci, vp]
         lb.bt2_sw.restype = ci
         lb.bt2_sw.argtypes = [vp] * 8 + [ci, ci, ci] + cfg + [ci, vp]
         lb.bt2_alu_probe.restype = ci

@@ -30,6 +30,13 @@ Three implementations of one function:
   - the numpy oracle `banded_fill_numpy` (and `banded_traceback`, the host
     traceback of the main path's rare gapped winners).
 `banded_dp` takes the plain version only for tensors on the CPU.
+
+The traceback from a known end cell has two implementations:
+`banded_traceback` (the numpy oracle: a refill of the band, then a Python
+walk) and the CUDA kernel `ops/csrc/sw_banded_tb.cu` (one warp a problem:
+the refill with a direction byte a cell, then one lane's walk), which
+`banded_traceback_batch` launches for a batch of problems on a CUDA device
+at K in TB_BANDS; elsewhere it runs the oracle per problem.
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ DEFAULT_BAND = 32
 # REGISTER_BAND_MAX, the wide-band kernel above
 KERNEL_BANDS = (32, 64, 128, 256, 512, 1024)
 REGISTER_BAND_MAX = 128
+# band widths of the traceback kernel (ops/csrc/sw_banded_tb.cu)
+TB_BANDS = (32, 64, 128)
 
 
 def wide_cells(local: bool) -> int:
@@ -333,3 +342,88 @@ def sw_banded_batch(rd, lens, mmpen, band, cfg: SwConfig,
         torch.from_numpy(np.asarray(lens, np.int32).copy()).to(device),
         put(band))
     return best.cpu().numpy(), bi.cpu().numpy(), bk.cpu().numpy()
+
+
+def _tb_scoring_fits(cfg: SwConfig, mm, lq: int) -> bool:
+    """Whether the traceback kernel's int32 fill is exact for this scoring
+    (its E sentinel, sw_banded_tb.cu step 3): bonus, penalties and the
+    mismatch penalties in [0, 2^15), rows at most 8192."""
+    vals = (cfg.ma, cfg.npen, cfg.rdg_open, cfg.rdg_ext, cfg.rfg_open,
+            cfg.rfg_ext)
+    return (lq <= 8192 and all(0 <= int(v) < 1 << 15 for v in vals)
+            and (mm.size == 0 or (int(mm.min()) >= 0
+                                  and int(mm.max()) < 1 << 15)))
+
+
+_TB_KIND = ("M", "D", "I")
+
+
+def banded_traceback_batch(rd, mm, band, lens, end_i, end_k, cfg: SwConfig,
+                           K: int = DEFAULT_BAND, *, device):
+    """`banded_traceback` of P problems at once (host arrays in and out).
+
+    rd:    [P, Lq] read codes; mm: [P, Lq] mismatch penalties
+    band:  [P, Lq+K] ref codes (row t: the window of problem t, its first
+           lens[t] + K codes used)
+    lens, end_i, end_k: [P] read lengths and DP end cells (band coords)
+    device: where the tracebacks run. On a CUDA device at K in TB_BANDS
+    one launch of the kernel `ops/csrc/sw_banded_tb.cu` (counted as
+    `sw_banded_tb`) on the current stream; a problem it flags (no
+    predecessor, the edit slots full, an end cell outside the problem)
+    and every problem elsewhere (the CPU, a wider band, a scoring outside
+    `_tb_scoring_fits`) run the oracle.
+    -> (list of (edits, start_band_pos, read_start), the oracle's format;
+    [P] bool numpy, True where the kernel's answer was taken).
+    """
+    P = len(lens)
+    lens = np.asarray(lens, np.int64)
+    on_card = np.zeros(P, bool)
+
+    def oracle(t):
+        rl = int(lens[t])
+        return banded_traceback(rd[t, :rl], mm[t, :rl], band[t, : rl + K],
+                                cfg, int(end_i[t]), int(end_k[t]), K=K)
+
+    dev = torch.device(device)
+    lq = rd.shape[1] if P else 0
+    if (P == 0 or dev.type != "cuda" or K not in TB_BANDS
+            or not _tb_scoring_fits(cfg, mm, lq)):
+        return [oracle(t) for t in range(P)], on_card
+    if band.shape[1] != lq + K:
+        raise ValueError(f"band width {band.shape[1]} != Lq + K = {lq + K}")
+
+    def put(a):
+        return torch.from_numpy(
+            np.ascontiguousarray(np.asarray(a, np.int32).T)).to(dev)
+
+    def put1(a):
+        return torch.from_numpy(np.asarray(a, np.int32).copy()).to(dev)
+
+    cap = 2 * lq + K    # a walk makes at most rl + K - 1 + (insertions) edits
+    dirs = torch.empty((P, lq, K), dtype=torch.uint8, device=dev)
+    edits = torch.empty((P, cap, 4), dtype=torch.int32, device=dev)
+    meta = torch.empty((P, 4), dtype=torch.int32, device=dev)
+    args = (put(rd), put(mm), put1(lens), put(band), put1(end_i),
+            put1(end_k))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = kernels.lib().bt2_sw_banded_tb(
+        *(a.data_ptr() for a in args), dirs.data_ptr(), edits.data_ptr(),
+        meta.data_ptr(), lq, P, K, cap, *kernels.cfg_args(cfg),
+        int(cfg.local), stream)
+    kernels.check(rc, "sw_banded_tb")
+    kernels.LAUNCHES["sw_banded_tb"] += 1
+    m = meta.cpu().numpy()
+    n_max = int(m[:, 0].max())
+    ed = edits[:, :n_max].cpu().numpy() if n_max else None
+    out = []
+    for t in range(P):
+        n, start, read_start, status = m[t].tolist()
+        if status:
+            out.append(oracle(t))
+            continue
+        on_card[t] = True
+        walk = ed[t, n - 1 :: -1].tolist() if n else []
+        out.append(([(_TB_KIND[ty], pos, a, b) if ty == 0
+                     else (_TB_KIND[ty], pos, a)
+                     for ty, pos, a, b in walk], start, read_start))
+    return out, on_card

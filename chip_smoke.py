@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py [--paths]
 
 (--paths: only phases 1, 2, 4, SR, BIG and PE, for an A/B of two
 checkouts on one card; --opts: only phases 1, 2 and OPTS; --mesh: only
-phases 1, 2 and MESH.)
+phases 1, 2 and MESH; --tb: only phases 1, 2 and TB.)
 
 It imports nothing of JAX. Phases, in order; any failure exits non-zero and
 prints no result line:
@@ -34,6 +34,12 @@ prints no result line:
      scripts/bench_rect.py (P = 4096; the unpaired path's run-boundary
      candidates; the paired path's mate-rescue windows) and on the
      tie-heavy tile of tests/torch_tiles.py;
+  TB. the traceback kernel (ops/csrc/sw_banded_tb.cu) against the numpy
+     oracle banded_traceback on the problems of tests/torch_tiles.py
+     (traceback_problems, K = 64, 100 bp reads, end cells from the fill
+     kernel), with its device time (bench_dp.device_ms, median of 5) and
+     bound at P = 64 end-to-end (a pack's gapped winners) and P = 4096
+     --local (a pack whose every winner is traced);
   DP. the DP microbench (scripts/bench_dp.py of the port) at its reference
      shape and at the main path's banded shape: cells/s, the ALU ceiling
      its probe measures, roofline_frac, the SASS instruction mix of the
@@ -206,8 +212,9 @@ N_BATCHES = 8       # measured batches, after one warm-up batch
 PROFILED = 2        # batches of each path run under torch.profiler, after
                     # the measured ones
 DEPTH = 4           # batches in flight (bench.py's dispatch depth)
-# --local sends every winner through the host traceback (numpy, a few ms
-# a read), so its one batch is cut to a quarter of BATCH
+# --local traces every winner (on the card the traceback kernel, a numpy
+# traceback a read in the CPU parity runs), so its one batch is a quarter
+# of BATCH
 LOCAL_BATCH = 8192
 CHROM_LEN = 3_600_000
 N_CONTIGS, CONTIG_LEN = 400, 1000
@@ -321,6 +328,9 @@ KERNEL_SOURCES = {
                           "bowtie2_server_tpu/ops/sw_banded.py:240"),
     "sw_banded_wide": ("sw_banded_wide.cu",
                        "bowtie2_server_tpu/ops/sw_banded.py:240"),
+    # no TPU kernel: the JAX package traces back on the host (numpy)
+    "sw_banded_tb": ("sw_banded_tb.cu",
+                     "bowtie2_server_tpu/ops/sw_banded.py banded_traceback"),
     "sw": ("sw.cu", "bowtie2_server_tpu/ops/sw.py:282"),
     "alu_probe": ("alu_probe.cu", "scripts/bench_dp.py:48"),
     # not TPU kernels: the plain-jnp LF chain the JAX package left to XLA
@@ -863,8 +873,13 @@ def phase_main(idx, contigs, local=True):
             raise RuntimeError(f"the main path never launched {name}")
     if not local:
         return launches, dict(reads_per_s=rps, origin=frac, device=shares)
+    # the --local batch's launches alone: every --local winner is traced,
+    # so the traceback kernel runs there
+    kernels.reset_launches()
     l_rps, l_aligned, l_frac = run_local_batch(idx, contigs, "cuda",
                                                LOCAL_BATCH)
+    torch.cuda.synchronize()
+    launches["local_sw_banded_tb"] = kernels.LAUNCHES["sw_banded_tb"]
     log(f"main path (--local, one batch of {LOCAL_BATCH}): {l_rps:.1f} "
         f"reads/s; "
         f"aligned {l_aligned:.4f}; origin inside the read span and strand "
@@ -872,8 +887,107 @@ def phase_main(idx, contigs, local=True):
     if l_frac < ORIGIN_MIN_LOCAL:
         raise RuntimeError(f"local origin fraction {l_frac:.4f} < "
                            f"{ORIGIN_MIN_LOCAL}")
+    if launches["local_sw_banded_tb"] == 0:
+        raise RuntimeError("the --local batch never launched sw_banded_tb")
     return launches, dict(reads_per_s=rps, origin=frac,
                           local_reads_per_s=l_rps, device=shares)
+
+
+# phase TB: (label, problems, --local); K = 64, 100 bp reads
+TB_SHAPES = (("e2e", 64, False), ("local", 4096, True))
+
+
+def tb_ops_per_cell(local: bool) -> int:
+    """int32 operations a cell of the traceback kernel's fill, counted as
+    bench_banded.banded_ops_per_cell counts (each add, compare, max,
+    select and or one): the recurrence, 10, with --local's clamp at 0, 1
+    (no running max: the end cell is given); the direction byte's tests,
+    H == diagonal, H == E, H == F, and the two extensions (E == E_left -
+    rdg_ext, F == F_up - rfg_ext, their subtractions the recurrence's
+    own), 5, and their 5 bits packed, 5. --local adds, for each of the
+    three H tests, the source's sign test and its and, 6, and the zero
+    test with its bit, 2. A lower bound: the kernel's own loop
+    (kernel_ops_per_cell in the result) also moves the band codes and
+    runs the E scan over the lanes."""
+    return 20 + 9 * int(local)
+
+
+def phase_tb(ceiling=None):
+    """Phase TB: banded_traceback_batch's kernel against the oracle, with
+    its device time and bound at TB_SHAPES. The bound: the cells it fills
+    (rows 0..bi of each problem, K a row) x tb_ops_per_cell over the int32
+    ceiling, or its bytes (inputs, direction bytes and edits written) over
+    HBM's 3.35e12 B/s, the larger; the walk, one dependent byte load a
+    step, is not in it. call_ms: the whole banded_traceback_batch call on
+    the host's clock (copies in and out, the edit lists)."""
+    import torch
+    from bowtie2_server_tpu_torch.ops import kernels
+    from bowtie2_server_tpu_torch.ops import sw as tsw
+    from bowtie2_server_tpu_torch.ops import sw_banded as tsb
+    from bowtie2_server_tpu_torch.scripts.bench_dp import (
+        device_ms, measure_alu_ceiling)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_tiles import traceback_problems
+    dev = torch.device("cuda")
+    if ceiling is None:
+        ceiling, _ = measure_alu_ceiling(dev)
+    K, res, t_phase = 64, {}, time.time()
+    for label, P, local in TB_SHAPES:
+        cfg = tsw.SwConfig(ma=2, local=True) if local else tsw.SwConfig()
+        rd, mm, band, lens = traceback_problems(64 + P, P, K, 100, 100)
+
+        def put(a):
+            return torch.from_numpy(
+                np.ascontiguousarray(a.T.astype(np.int32))).to(dev)
+        _, bi, bk = tsb.banded_dp(cfg, K, put(rd), put(mm),
+                                  torch.from_numpy(lens.copy()).to(dev),
+                                  put(band))
+        bi, bk = bi.cpu().numpy(), bk.cpu().numpy()
+
+        def call():
+            return tsb.banded_traceback_batch(rd, mm, band, lens, bi, bk,
+                                              cfg, K, device=dev)
+        got, on_card = call()
+        bad = sum(got[t] != tsb.banded_traceback(
+            rd[t, :100], mm[t, :100], band[t, : 100 + K], cfg, int(bi[t]),
+            int(bk[t]), K=K) for t in range(P))
+        if bad or not on_card.all():
+            raise RuntimeError(f"TB {label}: {bad} of {P} tracebacks differ "
+                               f"from the oracle, {int((~on_card).sum())} "
+                               f"left to it")
+        n0 = kernels.LAUNCHES["sw_banded_tb"]
+        ms = device_ms(call, dev, "traceback_kernel", reps=5)
+        t0 = time.time()
+        for _ in range(3):
+            call()
+        call_ms = (time.time() - t0) / 3 * 1e3
+        cells = int((bi.astype(np.int64) + 1).sum()) * K
+        n_edits = sum(len(g[0]) for g in got)
+        nbytes = 4 * (rd.size + mm.size + band.size + 5 * P) + cells \
+            + 16 * (n_edits + P)
+        opc = tb_ops_per_cell(local)
+        bound = max(cells * opc / ceiling, nbytes / 3.35e12) * 1e3
+        by = ("operations" if cells * opc / ceiling >= nbytes / 3.35e12
+              else "bytes")
+        # the fill loop's SASS instructions a lane issues a row, over the
+        # K / 32 cells it owns
+        n, mix = kernels.loop_mix(f"traceback_kernelILi{K}ELb{int(local)}E")
+        res[label] = dict(P=P, K=K, ms=ms, call_ms=call_ms, bound_ms=bound,
+                          bound_by=by, frac_of_bound=bound / ms,
+                          cells=cells, scratch_bytes=P * 100 * K,
+                          ops_per_cell=opc, kernel_ops_per_cell=n / (K // 32),
+                          launches=kernels.LAUNCHES["sw_banded_tb"] - n0)
+        log(f"TB {label} P={P} K={K} 100 bp: equals the oracle on all {P}; "
+            f"kernel {ms:.4f} ms, the whole call {call_ms:.2f} ms; bound "
+            f"{bound:.4f} ms ({by}, {opc} ops a cell), {bound / ms:.3f} of "
+            f"it; {cells} cells; the fill loop (SASS): {n} instructions a "
+            f"row, {n / (K // 32):.1f} a cell {mix}")
+    log(f"phase TB in {time.time() - t_phase:.1f} s on {card_line()}")
+    return dict(max_abs_err=0, ms=res["e2e"]["ms"],
+                call_ms=res["e2e"]["call_ms"], plain_ms=None,
+                bound_ms=res["e2e"]["bound_ms"],
+                bound_by=res["e2e"]["bound_by"],
+                frac_of_bound=res["e2e"]["frac_of_bound"], shapes=res)
 
 
 def phase_dp_bench():
@@ -2641,6 +2755,8 @@ def main(argv=None):
         "only phases 1, 2 and OPTS (the genomes built first)"))
     ap.add_argument("--mesh", action="store_true", help=(
         "only phases 1, 2 and MESH (the genomes built first)"))
+    ap.add_argument("--tb", action="store_true", help=(
+        "only phases 1, 2 and TB"))
     cli = ap.parse_args(argv)
     paths_only = cli.paths
     card = phase_env()
@@ -2649,6 +2765,9 @@ def main(argv=None):
     from bowtie2_server_tpu_torch.index.fm import FmIndex
     t_all = time.time()
     phase_build()
+    if cli.tb:
+        log(json.dumps({"kernels": {"sw_banded_tb": phase_tb()}}))
+        return
     WORK.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
     fa, contigs = make_genome(42, CHROM_LEN, N_CONTIGS, CONTIG_LEN)
@@ -2683,6 +2802,7 @@ def main(argv=None):
                         "package": str(ROOT)}))
         return
     times = phase_kernels(contigs)
+    times["sw_banded_tb"] = phase_tb(times["alu_probe"]["ceiling_ops_per_s"])
     dp_launches = phase_dp_bench()
     launches, main_res = phase_main(idx, contigs)
     sr_launches, sr_res, sr_cap = phase_short(idx, contigs)
@@ -2718,12 +2838,14 @@ def main(argv=None):
     # banded and rectangle kernels (the paired path is checked above), the
     # short-read path for the FM kernels, the --dpad 32 and --dpad 64
     # batches for the wide-band kernel, the DP microbench for the probe,
-    # the big-index path for fm_resolve
+    # the big-index path for fm_resolve, the --local batch for the
+    # traceback kernel
     path_launches = dict(sw_banded=launches["sw_banded"],
                          sw_banded_general=launches["sw_banded_general"],
                          sw=launches["sw"],
                          sw_banded_wide=sum(w["sw_banded_wide"]
                                             for w in wide_launches),
+                         sw_banded_tb=launches["local_sw_banded_tb"],
                          alu_probe=dp_launches["alu_probe"],
                          fm_walk=sr_launches["fm_walk"],
                          fm_lf_step=sr_launches["fm_lf_step"],

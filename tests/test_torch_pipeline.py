@@ -188,3 +188,115 @@ def test_cli_refuses_other_options(capsys):
         errs.append(capsys.readouterr().err.strip().splitlines()[-1])
     assert errs[1].split(": error: ")[1] == errs[0].split(": error: ")[1]
     assert "--bowtie2p5 is not supported: the deprecated 2.5" in errs[1]
+
+
+@pytest.fixture(scope="module")
+def indel_workload():
+    """A 300 kbp genome (the port's own index) and 4096 reads of 100 bp cut
+    from it, either strand, 0-3 substitutions, one in eight with a planted
+    insertion or deletion of 1-3 bases: the gapped winners
+    _finish_gapped traces together."""
+    from bowtie2_server_tpu_torch.index.build import build_index as tbuild
+    rng = np.random.default_rng(3)
+    g = rng.integers(0, 4, 300_000).astype(np.uint8)
+    idx = tbuild(">c0\n" + dna.decode(g) + "\n")
+    names, seqs = [], []
+    for k in range(4096):
+        s = int(rng.integers(0, len(g) - 120))
+        r = list(g[s : s + 110])
+        if k % 8 == 0:
+            p = int(rng.integers(10, 90))
+            if k % 16 == 0:
+                del r[p : p + int(rng.integers(1, 4))]
+            else:
+                r[p:p] = list(rng.integers(0, 4, int(rng.integers(1, 4))))
+        r = np.array(r[:READ_LEN], np.uint8)
+        for p in rng.choice(READ_LEN, int(rng.integers(0, 4)), False):
+            r[p] = (r[p] + 1) % 4
+        if k % 2:
+            r = (3 - r)[::-1]
+        names.append(f"r{k}")
+        seqs.append(dna.decode(r).encode())
+    quals = [bytes(rng.integers(35, 74, READ_LEN).astype(np.uint8))
+             for _ in range(4096)]
+    return idx, (names, seqs, quals)
+
+
+def per_read_gapped(self, st, reads, scores, secs):
+    """_finish_gapped as finish_candidate one winner at a time: the
+    per-read path the batched commit replaces."""
+    ok = np.zeros(len(reads), bool)
+    for t, i in enumerate(reads.tolist()):
+        ok[t] = self.finish_candidate(st, i, int(st.res.best_ci[i]),
+                                      int(scores[t]), secs[t])
+    return ok
+
+
+@pytest.mark.parametrize("local", [False, True], ids=["e2e", "local"])
+def test_batched_gapped_commit_equals_per_read(indel_workload, local,
+                                               monkeypatch):
+    """The batched traceback and commit of the fused winners gives the
+    records and the --met traceback counts of the per-read path: 4096
+    reads end-to-end, 512 in --local (where every winner is traced)."""
+    idx, (names, seqs, quals) = indel_workload
+    if local:
+        names, seqs, quals = names[:512], seqs[:512], quals[:512]
+    batch = make_batch(names, seqs, quals)
+    sc, pol = t_preset_params(None, local)
+
+    def run():
+        al = tpipe.UnpairedAligner(idx, scoring=sc,
+                                   policy=tpipe.SearchPolicy(**pol),
+                                   device="cpu")
+        recs = al.align_batch(batch)
+        return [recs[i] for i in range(len(names))], al
+
+    got, al = run()
+    monkeypatch.setattr(tpipe.UnpairedAligner, "_finish_gapped",
+                        per_read_gapped)
+    want, ref = run()
+    assert got == want
+    assert al.bt_ctr == ref.bt_ctr
+    assert al.bt_ctr["bt"] > (400 if local else 200)
+    assert al.tb_card == 0      # the CPU runs the oracle
+    assert sum(r.aligned for r in got) > 0.99 * len(names)
+
+
+def test_rejected_gapped_winners_fall_to_the_slow_loop(indel_workload,
+                                                       monkeypatch):
+    """A traced winner that the commit rejects, by the N ceiling or by a
+    run straddle, stays unhandled after _finish_fast, and the per-read
+    loop takes it up."""
+    idx, (names, seqs, quals) = indel_workload
+    names, seqs, quals = names[:256], seqs[:256], quals[:256]
+    sc, pol = t_preset_params(None, False)
+    al = tpipe.UnpairedAligner(idx, scoring=sc,
+                               policy=tpipe.SearchPolicy(**pol),
+                               device="cpu")
+    st = al.collect(make_batch(names, seqs, quals))
+    res = st.res
+    w = np.nonzero(~st.filtered & ~res.has_rect & (res.best_ci >= 0)
+                   & (res.sec_sc < res.best_sc))[0]
+    gapped = w[~res.c_ungapped[res.best_ci[w]]]
+    assert len(gapped) >= 4
+    a, b = int(gapped[0]), int(gapped[1])
+    st.nceil[a] = -1           # no reference N allowed below zero
+    ws_b = int(res.c_ws[res.best_ci[b]])
+    orig = al.idx.joined_to_ref
+
+    def straddle(jp, aln_len=None):
+        ref_id, ref_off, valid = orig(jp, aln_len=aln_len)
+        if aln_len is not None:
+            valid = valid & ~((jp >= ws_b) & (jp < ws_b + 100 + al.band))
+        return ref_id, ref_off, valid
+
+    monkeypatch.setattr(al.idx, "joined_to_ref", straddle)
+    handled = al._finish_fast(st)
+    assert not handled[a] and not handled[b]
+    assert handled[gapped[2:]].all()
+    assert al.bt_ctr["btfail"] == 2
+    assert al.bt_ctr["btsucc"] == al.bt_ctr["bt"] - 2
+    for i in np.nonzero(~handled)[0]:
+        al._select_unpaired(st, i)
+    # the loop traced both again, and rejected them again
+    assert al.bt_ctr["btfail"] >= 4

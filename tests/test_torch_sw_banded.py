@@ -120,3 +120,51 @@ def test_banded_edge_tile_torch_equals_jax(name, K):
     for w_x, w_p, g in zip(want, want_pl, got):
         np.testing.assert_array_equal(w_x[:P], w_p)
         np.testing.assert_array_equal(g.numpy(), w_x)
+
+
+@pytest.mark.parametrize("name", list(CFGS))
+def test_traceback_batch_on_cpu_is_the_oracle(name):
+    """banded_traceback_batch on the CPU: banded_traceback of each problem
+    (ragged lengths in one batch), none taken from the kernel."""
+    from torch_tiles import traceback_problems
+    cfg = SwConfig(**CFGS[name])
+    K = 64
+    rd, mm, band, lens = traceback_problems(11, 12, K, 20, 120)
+    ends = [tsb.banded_best_numpy(rd[t, :n], mm[t, :n], band[t, : n + K],
+                                  cfg, K)[1:] for t, n in enumerate(lens)]
+    bi, bk = np.array(ends).T
+    got, on_card = tsb.banded_traceback_batch(rd, mm, band, lens, bi, bk,
+                                              cfg, K, device="cpu")
+    assert not on_card.any()
+    for t, n in enumerate(lens):
+        assert got[t] == tsb.banded_traceback(
+            rd[t, :n], mm[t, :n], band[t, : n + K], cfg, int(bi[t]),
+            int(bk[t]), K)
+
+
+@pytest.mark.parametrize("K", tsb.TB_BANDS)
+@pytest.mark.parametrize("name", list(CFGS))
+def test_traceback_kernel_emulation_is_the_oracle(name, K):
+    """The traceback kernel's logic (torch_tiles.emulate_traceback_kernel,
+    its steps lane by lane in numpy) gives banded_traceback's answer on
+    every problem: the best end cells, and one in five moved (end-to-end
+    along the last row, --local to any row)."""
+    from torch_tiles import emulate_traceback_kernel, traceback_problems
+    cfg = SwConfig(**CFGS[name])
+    seed = 100 * K + list(CFGS).index(name)
+    rd, mm, band, lens = traceback_problems(seed, 24, K, 20, 120)
+    rng = np.random.default_rng(seed)
+    gaps = 0
+    for t, n in enumerate(lens.tolist()):
+        args = (rd[t, :n], mm[t, :n], band[t, : n + K])
+        _, bi, bk = tsb.banded_best_numpy(*args, cfg, K)
+        if rng.random() < 0.2:
+            bk = int(rng.integers(0, K))
+            if cfg.local:
+                bi = int(rng.integers(0, n))
+        want = tsb.banded_traceback(*args, cfg, bi, bk, K)
+        got = emulate_traceback_kernel(*args, n, bi, bk, cfg, K,
+                                       2 * rd.shape[1] + K)
+        assert got == want, (t, n, bi, bk)
+        gaps += any(e[0] != "M" for e in want[0])
+    assert gaps > 0

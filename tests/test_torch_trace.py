@@ -185,6 +185,37 @@ def test_server_round_trip_spans(genome, recorder):
     assert idle and all(s.pack is None for s in idle)
 
 
+@pytest.mark.parametrize("local", [False, True], ids=["e2e", "local"])
+def test_select_counts_tracebacks(genome, recorder, local):
+    """up.select's tb counts the batch's traceback passes (the increase of
+    the --met Bt counter: the fast commit's and the per-read loop's) and
+    tb_card those the CUDA kernel ran, none on the CPU."""
+    from bowtie2_server_tpu_torch.align.pipeline import (SearchPolicy,
+                                                         UnpairedAligner)
+    from bowtie2_server_tpu_torch.index.fm import FmIndex
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.utils.presets import preset_params
+    chroms, base, _ = genome
+    rng = np.random.default_rng(9)
+    reads = make_reads(chroms, 96, 4)
+    for k in range(0, len(reads), 3):     # a deletion in one read of three
+        n, s, q = reads[k]
+        p = int(rng.integers(20, 80))
+        reads[k] = (n, s[:p] + s[p + 2 :] + "A" * 2, q)
+    sc, pol = preset_params(None, local)
+    al = UnpairedAligner(FmIndex.load(base), scoring=sc,
+                         policy=SearchPolicy(**pol), device="cpu")
+    t0 = time.time()
+    for lo in (0, 48):
+        al.align_batch(make_batch(*zip(*(
+            (n.encode(), s.encode(), q.encode())
+            for n, s, q in reads[lo : lo + 48]))))
+    sel = [s for s in trace.spans(t0) if s.name == "up.select"]
+    assert len(sel) == 2
+    assert sum(s.attrs["tb"] for s in sel) == al.bt_ctr["bt"] > 16
+    assert all(s.attrs["tb_card"] == 0 for s in sel)
+
+
 def test_fetch_valid_equals_met_dpex(genome, tmp_path, recorder):
     """cg.fetch's interior problems over a CLI run equal the --met TSV's
     DP16ExDps (DPEx) for the same reads."""

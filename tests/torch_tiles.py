@@ -263,3 +263,166 @@ def fm_edge_tile(seed, text, n_rows, primary, p=P + 1, lq=48):
     c = np.resize(np.arange(6), p)
     return (pat, lens.astype(np.int32),
             *(np.ascontiguousarray(a, np.int32) for a in (c, top, bot)))
+
+
+def traceback_problems(seed, p, K, lo=20, hi=250):
+    """p banded traceback problems in banded_traceback_batch's layout
+    (host [p, ...] arrays): rd [p, Lq] uint8 (pad 5), mm [p, Lq] int32,
+    band [p, Lq + K] uint8 (pad 4), lens [p] int32, read lengths lo..hi in
+    one batch. Reads are cut from their window on a diagonal near either
+    band edge or inside, with 0-3 indels of 1-4 bases anywhere (inside the
+    gap barrier too), substitutions and N codes in reads and windows; one
+    problem in four has a window of a short repeated unit, full of
+    equal-score ties."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi + 1, p).astype(np.int32)
+    lq = int(lens.max())
+    rd = np.full((p, lq), 5, np.uint8)
+    mm = np.zeros((p, lq), np.int32)
+    band = np.full((p, lq + K), 4, np.uint8)
+    for t in range(p):
+        rl = int(lens[t])
+        if t % 4 == 3:
+            unit = rng.integers(0, 4, int(rng.integers(1, 4)))
+            ref = np.resize(unit, rl + K + 8)
+            ref[rng.integers(0, len(ref), 2)] = rng.integers(0, 4, 2)
+        else:
+            ref = rng.integers(0, 4, rl + K + 8)
+        if t % 5 == 1:
+            ref[rng.integers(0, len(ref), 3)] = 4
+        c = int((0, 1, K - 3, K // 2, rng.integers(0, K))[t % 5])
+        read = list(ref[c:])
+        for _ in range(int(rng.integers(0, 4))):
+            q = int(rng.integers(0, rl))
+            n = int(rng.integers(1, 5))
+            if rng.random() < 0.5:
+                del read[q : q + n]
+            else:
+                read[q:q] = list(rng.integers(0, 4, n))
+        read = np.resize(np.array(read, np.uint8), rl)
+        for q in rng.choice(rl, int(rng.integers(0, 6)), False):
+            read[q] = rng.integers(0, 4)
+        if t % 7 == 2:
+            read[rng.integers(0, rl)] = 4
+        rd[t, :rl] = read
+        mm[t, :rl] = rng.integers(2, 7, rl)
+        band[t, : rl + K] = ref[: rl + K]
+    return rd, mm, band, lens
+
+
+# the direction bits of ops/csrc/sw_banded_tb.cu
+TB_DIAG, TB_HE, TB_HF, TB_EX, TB_FX, TB_Z = 1, 2, 4, 8, 16, 32
+
+
+def emulate_traceback_kernel(rd, mm, band, rl, bi, bk, cfg, K, cap):
+    """The traceback kernel of ops/csrc/sw_banded_tb.cu, lane by lane in
+    numpy for one problem (rd, mm: the read's rows; band: its window of
+    rl + K codes): the 32 lanes of the warp are rows of [32, K/32] arrays,
+    a shuffle a shift along them, and each step is the kernel's (its
+    sentinel, its max-scan over the lanes, its direction bits tested on H
+    before the --local clamp, its walk and its edit cap). Returns the
+    oracle's (edits, start_band_pos, read_start), or None where the kernel
+    flags the problem for the oracle. A fault in the kernel's logic shows
+    here on the CPU; what the CUDA compiler makes of it shows only on the
+    card."""
+    NEG, SENT = -100_000_000, -(1 << 30)
+    J, local = K // 32, cfg.local
+    if bi < 0 or bi >= min(rl, len(rd)) or bk < 0 or bk >= K:
+        return None
+
+    def down(v):   # __shfl_down_sync(v, 1): lane 31 keeps its own
+        return np.concatenate([v[1:], v[-1:]])
+
+    def up(v, d=1):   # __shfl_up_sync(v, d): lanes below d keep their own
+        return np.concatenate([v[:d], v[:-d]])
+
+    lanes = np.arange(32)
+    kk = lanes[:, None] * J + np.arange(J)[None, :]   # band cell of (lane, j)
+    edge = kk == K - 1
+    h = np.zeros((32, J), np.int64)
+    f = np.full((32, J), NEG, np.int64)
+    cd = band[kk].astype(np.int64)
+    dirs = np.zeros((bi + 1, K), np.int64)
+    for i in range(bi + 1):
+        rdc, mmv = int(rd[i]), int(mm[i])
+        gap = cfg.gapbar <= i < rl - cfg.gapbar
+        s = np.where((rdc > 3) | (cd > 3), -cfg.npen,
+                     np.where(cd == rdc, cfg.ma, -mmv))
+        diag = h + s
+        hu = np.concatenate([h[:, 1:], down(h[:, 0])[:, None]], 1)
+        fu = np.concatenate([f[:, 1:], down(f[:, 0])[:, None]], 1)
+        fv = np.where(gap & ~edge, np.maximum(fu - cfg.rfg_ext,
+                                              hu - cfg.rfg_open), NEG)
+        fx = (i >= 1) & ~edge & (fv == fu - cfg.rfg_ext)
+        base = np.maximum(diag, fv)
+        e = np.full((32, J), NEG, np.int64)
+        if gap:
+            run = np.where(lanes == 0, NEG, SENT).astype(np.int64)
+            for j in range(J):
+                run = np.maximum(run - cfg.rdg_ext, base[:, j] - cfg.rdg_open)
+            d = 1
+            while d < 32:
+                run = np.where(lanes >= d, np.maximum(
+                    run, up(run, d) - d * J * cfg.rdg_ext), run)
+                d *= 2
+            e[:, 0] = np.where(lanes == 0, NEG, up(run))
+            for j in range(1, J):
+                e[:, j] = np.maximum(e[:, j - 1] - cfg.rdg_ext,
+                                     base[:, j - 1] - cfg.rdg_open)
+        ep = np.concatenate([up(e[:, J - 1])[:, None], e[:, :-1]], 1)
+        h0 = np.maximum(base, e)
+        b = (np.where((h0 == diag) & (not local or diag >= 0), TB_DIAG, 0)
+             | np.where((h0 == e) & (not local or e >= 0), TB_HE, 0)
+             | np.where((h0 == fv) & (not local or fv >= 0), TB_HF, 0)
+             | np.where(fx, TB_FX, 0)
+             | np.where((kk >= 1) & (e == ep - cfg.rdg_ext), TB_EX, 0))
+        if local:
+            b |= np.where(h0 <= 0, TB_Z, 0)
+        dirs[i] = b.reshape(-1)
+        h, f = (np.maximum(h0, 0) if local else h0), fv
+        cd = np.concatenate([cd[:, 1:], down(cd[:, 0])[:, None]], 1)
+        if i + 1 <= bi:
+            cd[31, J - 1] = band[i + K]
+    i, k, state, edits = bi, bk, 0, []   # state 0: H, 1: E, 2: F
+    while True:
+        if not 0 <= k < K:
+            return None
+        d = dirs[i, k]
+        if state == 0:
+            if local and d & TB_Z:
+                if d & (TB_HE | TB_HF):
+                    state = 1 if d & TB_HE else 2
+                    continue
+                i += 1
+                break
+            if d & TB_DIAG:
+                rdc, rfc = int(rd[i]), int(band[i + k])
+                if rdc != rfc or rdc > 3 or rfc > 3:
+                    if len(edits) == cap:
+                        return None
+                    edits.append(("M", i, rfc, rdc))
+                i -= 1
+                if i < 0:
+                    i = 0
+                    break
+            elif d & (TB_HE | TB_HF):
+                state = 1 if d & TB_HE else 2
+            else:
+                return None
+            continue
+        if len(edits) == cap:
+            return None
+        if state == 1:   # ref char band[i + k] deleted, keyed at i + 1
+            edits.append(("D", i + 1, int(band[i + k])))
+            k -= 1
+            if not d & TB_EX:
+                state = 0
+        else:            # read char i inserted
+            edits.append(("I", i, int(rd[i])))
+            i, k = i - 1, k + 1
+            if i < 0:
+                i = 0
+                break
+            if not d & TB_FX:
+                state = 0
+    return edits[::-1], i + k, i
