@@ -14,8 +14,9 @@ wire's in-flight bound lets it, then sends its last chunk and waits for
 All Done.
 
 The result file holds a list, an entry a client: the reads answered
-inside [t0, t_end]; every read answered; the wire's faults; and the
-sampled reads with their truth and the records they got.
+inside [t0, t_end] (a pair's mates count as two reads); every row
+answered; the wire's faults; and the sampled rows with their truth and
+the records they got.
 """
 from __future__ import annotations
 
@@ -26,13 +27,14 @@ import time
 from pathlib import Path
 
 from . import genome as gmod
-from .traffic import ReadSource
+from .traffic import ReadSource, records_per_row
 from .wire import Connection
 
 
 class Tally:
-    def __init__(self, t0: float, t_end: float):
+    def __init__(self, t0: float, t_end: float, reads_per_row: int = 1):
         self.t0, self.t_end = t0, t_end
+        self.reads_per_row = reads_per_row
         self.in_window = 0
         self.answered = 0
         self.samples: dict[int, list] = {}
@@ -41,7 +43,7 @@ class Tally:
     def on_read(self, key, lines, t):
         self.answered += 1
         if self.t0 <= t <= self.t_end:
-            self.in_window += 1
+            self.in_window += self.reads_per_row
         if key in self.samples:
             self.got[key] = [ln.decode() for ln in lines]
 
@@ -59,7 +61,8 @@ def stream(spec, gen):
             for k in range(n)]
     firsts = [src.chunk(int(tr["chunk"])) for src in srcs]
     conns = [Connection(spec["host"], spec["port"], spec["index_name"],
-                        1, max_slots=int(tr["in_flight"]))
+                        records_per_row(spec["config"]),
+                        max_slots=int(tr["in_flight"]))
              for _ in range(n)]
     t0, t_end = _ready()
     outs: list = [None] * n
@@ -75,7 +78,7 @@ def stream(spec, gen):
 
 def _stream_one(spec, src, conn, first, t0, t_end, outs, k):
     tr = spec["traffic"]
-    tally = Tally(t0, t_end)
+    tally = Tally(t0, t_end, conn.n_records)
     conn.on_read = tally.on_read
     _sleep_until(t0)
     rows, samples = first

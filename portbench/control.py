@@ -1,7 +1,8 @@
 """The control of `correct`: the reference itself in the program's place
 with one guarantee broken (no gaps, and no look at a repeat's other
-copies; reference.control_records), judged by the run's own checks
-(run.finish) on the reads a run of the cell sends.
+copies for a read's XS; a pair's fields follow the judge's rules;
+reference.control_records), judged by the run's own checks (run.finish)
+on the reads or pairs a run of the cell sends.
 
     python3 -m portbench.control --workload ecoli_se100.stream \\
         --seeds 1,2,3 --rows 60000

@@ -9,7 +9,11 @@ from its stretch of genome; mutations at `mutation_rate` a base, of which
 `indel_fraction` are indels (half insertions, half deletions, lengths
 geometric with `indel_extend`) and the rest substitutions; then sequencing
 errors, substitutions at `error_rate` a base; and wgsim's constant base
-quality for that error rate. Unpaired reads take either strand.
+quality for that error rate. Unpaired reads take either strand. Pairs
+(`reads.paired`) follow wgsim's paired model: a fragment whose length is
+drawn from `reads.fragment`, on either strand; mate 1 is its first
+`length` bases on that strand, mate 2 the reverse complement of its last
+`length` bases (FR), each mutated and sequenced on its own stretch.
 
 Codes are 0-3 for A, C, G, T. Each read carries its truth: the sequence
 index, the leftmost reference base it covers (0-based, in the sequence),
@@ -227,3 +231,28 @@ def simulate_unpaired(gen: Genome, rc: dict, rng, n: int) -> Reads:
                                          L, rc)
     start = np.where(fw, start, start + L - span)
     return Reads(_errors(rng, codes, rc), chrom, start, span, fw, has)
+
+
+def simulate_pairs(gen: Genome, rc: dict, rng, n: int) -> tuple[Reads, Reads]:
+    """n FR pairs, as wgsim makes them: a fragment of length drawn from
+    N(fragment.mean, fragment.sd), rounded and cut to [fragment.min,
+    fragment.max], placed uniformly inside one sequence, on either strand;
+    mate 1 is the fragment's first `length` bases on that strand and mate
+    2 the reverse complement of its last `length` bases. Each mate takes
+    the mutations and errors of the unpaired model on its own stretch."""
+    L = int(rc["length"])
+    fr = rc["fragment"]
+    frag = np.clip(np.rint(rng.normal(float(fr["mean"]), float(fr["sd"]), n)),
+                   max(int(fr["min"]), L), int(fr["max"])).astype(np.int64)
+    chrom, start = _positions(rng, gen, n, frag)
+    fw = rng.random(n) < 0.5            # the strand of the fragment, mate 1's
+    g0 = gen.offsets[chrom] + start
+    mates = []
+    for mfw, anchor in ((fw, np.where(fw, g0, g0 + frag)),
+                        (~fw, np.where(fw, g0 + frag, g0))):
+        codes, span, has = _mutate_stretches(
+            rng, _stretch(gen, anchor, mfw, L), L, rc)
+        mstart = np.where(mfw, start, start + frag - span)
+        mates.append(Reads(_errors(rng, codes, rc), chrom, mstart, span, mfw,
+                           has))
+    return mates[0], mates[1]

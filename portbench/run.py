@@ -15,9 +15,14 @@ the answers, drawn from the seed, against the plain reference
 Standard output's last line is one JSON object: correct, attempted,
 failed, metrics (the cell's end-to-end metrics with --trace 0, its
 per-layer metrics with --trace 1), device, with --trace 1 a breakdown, and
-last `checks`: each number compared with its limit. The same numbers are
-standard error's last lines. A run without the cards the cell needs, or
-that finds JAX or the JAX package loaded, prints no result and exits 2.
+last `checks`: each number compared with its limit. The numbers compared
+are the keys of the cell's limits file (`portbench/limits/<cell>.json`),
+which has to name every number the cell's judge gives
+(`reference.number_names`): a number with no limit, a key the judge gives
+no number for, or a share whose base is 0, fails the run. The same
+numbers are standard error's last lines. A run without the cards the cell
+needs, or that finds JAX or the JAX package loaded, prints no result and
+exits 2.
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ from pathlib import Path
 
 from . import genome as gmod
 from . import probes
-from .traffic import ReadSource, load_config, load_traffic
+from .traffic import (ReadSource, load_config, load_traffic,
+                      records_per_row)
 from .wire import Connection
 
 HERE = Path(__file__).resolve().parent
@@ -123,7 +129,8 @@ def warm_up(cell: Cell, gen, port: int, index_name: str, seed: int):
     tr = cell.traffic
     src = ReadSource(gen, cell.cfg, tr, seed, 0, purpose=1)
     rows, _ = src.chunk(int(tr["warmup_rows"]))
-    c = Connection("127.0.0.1", port, index_name, 1)
+    c = Connection("127.0.0.1", port, index_name,
+                   records_per_row(cell.cfg))
     c.send(rows)
     c.finish(float(tr["drain_s"]))
     return sum(c.faults.values())
@@ -339,7 +346,7 @@ def finish(cell, gen, results, seconds, setup_s, mem, layer, breakdown,
     """The result object and the checks' lines of a run, from what the
     clients wrote (`results`, an entry a client, None for one that wrote
     nothing) and what the run read."""
-    from .reference import Judge
+    from .reference import Judge, number_names, numbers
     lost = sum(r is None for r in results)
     results = [r for r in results if r is not None]
     faults: dict[str, int] = {}
@@ -353,21 +360,26 @@ def finish(cell, gen, results, seconds, setup_s, mem, layer, breakdown,
                   + faults.get("miscounted", 0) + faults.get("no_all_done", 0)
                   + faults.get("refused", 0) + verdict["missing"]
                   + warm_faults + 1000000 * lost)
-
-    def pct(n, d):
-        return 100.0 * n / max(d, 1)
-
-    numbers = {"unanswered": unanswered,
-               "field_faults": verdict["field_faults"],
-               "below_pct": pct(verdict["below"], verdict["judged"]),
-               "gapped_below_pct": pct(verdict["gapped_below"],
-                                       verdict["gapped"]),
-               "repeat_xs_pct": pct(verdict["repeat_short"],
-                                    verdict["repeat"])}
-    checks = {k: {"value": v, "limit": cell.limits[k]["limit"]}
-              for k, v in numbers.items()}
-    correct = all(c["value"] <= c["limit"] for c in checks.values()) \
-        and verdict["gapped"] > 0 and verdict["repeat"] > 0
+    # every number the limits file names is compared with its limit; one
+    # the judge does not give, one of the judge's with no limit, or a share
+    # of nothing, fails the run
+    known = {"unanswered": (unanswered, None), **numbers(verdict)}
+    checks, unjudged = {}, []
+    for k, lim in cell.limits.items():
+        v, base = known.get(k, (None, None))
+        checks[k] = {"value": v, "limit": lim["limit"]}
+        if v is None:
+            unjudged.append(f"checks: {k} has a limit, but the judge gives "
+                            f"no such number for this cell")
+        elif base == 0:
+            unjudged.append(f"checks: {k} is a share of nothing: the "
+                            f"sample held no case of it")
+    for k in sorted(number_names(cell.cfg) - set(cell.limits)):
+        checks[k] = {"value": known[k][0], "limit": None}
+        unjudged.append(f"checks: {k} is a number of this cell's judge, but "
+                        f"its limits file gives it no limit")
+    correct = not unjudged and all(c["value"] <= c["limit"]
+                                   for c in checks.values())
     lines = [f"judged {verdict['judged']} reads of {len(samples)} sampled "
              f"answers: {verdict['below']} below their origin's best "
              f"({verdict['unaligned']} of them unaligned); "
@@ -375,6 +387,15 @@ def finish(cell, gen, results, seconds, setup_s, mem, layer, breakdown,
              f"{verdict['gapped_below']} of them below it; "
              f"{verdict['repeat']} repeat reads with a second alignment, "
              f"{verdict['repeat_short']} of them with XS missing or below it"]
+    if "pairs" in verdict:
+        lines.append(
+            f"judged {verdict['pairs']} pairs: {verdict['concordant']} "
+            f"reported concordant, {verdict['pair_faults']} with pair "
+            f"fields unlike the recomputation; {verdict['pair_held']} "
+            f"concordant in truth with valid bests, "
+            f"{verdict['pair_below']} of them reported not concordant or "
+            f"below their mates' bests")
+    lines += unjudged
     lines += [f"checks: {k} {c['value']} (limit {c['limit']})"
               for k, c in checks.items()]
     answered = sum(r["answered"] for r in results)
@@ -384,7 +405,8 @@ def finish(cell, gen, results, seconds, setup_s, mem, layer, breakdown,
         if m["name"] == "setup_s":
             v = setup_s
         elif m["name"] == "reads_per_s":
-            # every read answered inside the window, over its length
+            # every read answered inside the window (a pair's mates
+            # count as two), over its length
             v = sum(r["in_window"] for r in results) / seconds
         else:
             continue

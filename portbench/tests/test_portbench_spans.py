@@ -31,7 +31,13 @@ def trace():
 def test_a_traced_cpu_run_reads_every_span_metric(trace):
     cell = tiny_cell("tiny_se100", "stream")
     cell.per_layer = span_metrics()
-    assert len(cell.per_layer) == 10
+    # every program_span entry of BENCHMARK.json whose reader reads the
+    # port's spans through portbench/spans.py
+    b = json.loads((run.ROOT / "BENCHMARK.json").read_text())
+    through = [m["name"] for m in b["per_layer"]
+               if m["source"] == "program_span" and "portbench.spans" in
+               (run.probes.METRICS / f"{m['name']}.py").read_text()]
+    assert [m["name"] for m in cell.per_layer] == through and through
     out, lines = run.run_cell(cell, 2**31 + 17, 8, True, device="cpu",
                               hook=served_small)
     assert out["correct"], lines

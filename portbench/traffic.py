@@ -8,8 +8,10 @@ Traffic keys:
                loop this generator has).
   clients      the connections, each a thread of the one load process.
   workers      the server's workers (`Bt2Server(n_workers=...)`).
-  sample       the share of reads whose records the reference judges;
-  sample_indel the share of the rows in which an indel was planted.
+  sample       the share of rows (reads, or pairs) whose records the
+               reference judges;
+  sample_indel the share of the rows in which an indel was planted (in
+               either mate of a pair).
   chunk        reads a streaming client makes at a time.
   in_flight    reads a streaming client keeps in flight at most (the
                wire's bound, MAX_SLOTS).
@@ -18,7 +20,9 @@ Traffic keys:
   drain_s      seconds a client waits past the window for what is due.
 
 The reads' places, strands and errors are drawn from the seed; every seed
-gets the same kind and amount of work.
+gets the same kind and amount of work. A configuration whose
+`reads.paired` is true gets pairs: each row carries both mates, and a
+sampled pair is judged whole.
 """
 from __future__ import annotations
 
@@ -46,16 +50,21 @@ def rng_for(seed: int, *stream: int):
     return np.random.default_rng([int(seed) % (1 << 64), *stream])
 
 
+def records_per_row(cfg: dict) -> int:
+    """The records the server owes a row of this configuration: one a
+    read, two a pair."""
+    return 2 if cfg["reads"]["paired"] else 1
+
+
 class ReadSource:
-    """Rows for one client: chunks of unpaired reads with keys, and the
-    truth of the sampled ones."""
+    """Rows for one client: chunks of unpaired reads or of pairs with keys,
+    and the truth of the sampled ones."""
 
     def __init__(self, gen: gmod.Genome, cfg: dict, traffic: dict, seed: int,
                  client: int, purpose: int = 0):
         self.gen = gen
         self.rc = cfg["reads"]
-        if self.rc["paired"]:
-            raise ValueError("the generator makes unpaired reads only")
+        self.paired = bool(self.rc["paired"])
         self.sample = float(traffic["sample"])
         self.sample_indel = float(traffic.get("sample_indel", 1.0))
         self.rng = rng_for(seed, client, purpose)
@@ -66,7 +75,10 @@ class ReadSource:
 
     def chunk(self, n: int):
         """(rows, samples): rows as wire.Connection.send takes them, keyed
-        by a serial number; samples: serial -> truth of the sampled rows."""
+        by a serial number; samples: serial -> truth of the sampled rows,
+        an entry a mate."""
+        if self.paired:
+            return self._pairs(n)
         m = gmod.simulate_unpaired(self.gen, self.rc, self.rng, n)
         keys = range(self.serial, self.serial + n)
         q = self.qual
@@ -78,6 +90,22 @@ class ReadSource:
         picked = np.nonzero(np.where(m.indel, u < self.sample_indel,
                                      u < self.sample))[0]
         samples = {self.serial + int(i): [_truth(m, int(i))] for i in picked}
+        self.serial += n
+        return rows, samples
+
+    def _pairs(self, n: int):
+        m1, m2 = gmod.simulate_pairs(self.gen, self.rc, self.rng, n)
+        q = self.qual
+        rows = [(k, [a.tobytes(), q, b.tobytes(), q]) for k, a, b in zip(
+            range(self.serial, self.serial + n), gmod.BASES[m1.codes],
+            gmod.BASES[m2.codes])]
+        u = self.rng.random(n)
+        picked = np.nonzero(np.where(m1.indel | m2.indel,
+                                     u < self.sample_indel,
+                                     u < self.sample))[0]
+        samples = {self.serial + int(i): [_truth(m1, int(i)),
+                                          _truth(m2, int(i))]
+                   for i in picked}
         self.serial += n
         return rows, samples
 
