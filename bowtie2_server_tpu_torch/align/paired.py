@@ -14,8 +14,9 @@ Strategy: run the full unpaired candidate machinery on both mates, then
     opposite mate as a rectangle DP over the fragment window implied by the
     anchor (ref: frameFindMateRect + otherMate);
  3. classify: concordant pair (YT:Z:CP, proper flag, paired MAPQ over
-    summed scores) > discordant (both mates unique, YT:Z:DP) > mixed
-    unpaired (YT:Z:UP).
+    summed scores, each mate's XS:i its own second best, as bowtie2
+    gives it; the JAX package gives none) > discordant (both mates
+    unique, YT:Z:DP) > mixed unpaired (YT:Z:UP).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import numpy as np
 
 from ..io.fastq import ReadBatch
 from ..ops.sw import NEG_INF, sw_align_batch
-from ..utils import dna
+from ..utils import dna, trace
 from ..utils.rng import RandomSource, select_by_score_order
 from .mapq import mapq_batch, mapq_fn
 from .pipeline import (AlnRec, BigCapacityError, ConcatRecs,
@@ -343,7 +344,11 @@ class PairedAligner:
             NEGH = NEG_INF // 2
             has = res.best_ci >= 0
             k = np.clip(res.best_ci, 0, len(res.c_read) - 1)
+            # one candidate and no hidden exact copy: second_best gives
+            # None, so the mate carries no XS:i
+            ex = st.exact_mult
             single = (has & ~res.has_rect & (res.sec_sc <= NEGH)
+                      & (ex <= 1) & (ex <= self.up._resolve_cap())
                       & res.c_ungapped[k] & ~st.filtered)
             out_sc.append(res.c_score[k].astype(np.int64))
             out_ci.append(k)
@@ -464,7 +469,12 @@ class PairedAligner:
         # the whole seed stage).
         b1, b2, both_ok, h1, h2 = handle
         try:
-            return self._align_wait_inner(b1, b2, both_ok, h1, h2)
+            # reads: the mates answered (none where the batch is halved:
+            # the halves' own spans count them)
+            with trace.span("pe.wait", reads=0) as sp:
+                out = self._align_wait_inner(b1, b2, both_ok, h1, h2)
+                sp.set(reads=2 * len(b1))
+            return out
         except BigCapacityError:
             # big-index degradation: halve the pair batch and retry (see
             # UnpairedAligner.align_wait)
@@ -499,9 +509,11 @@ class PairedAligner:
         # exact offsets — the dominant case; skips the per-read python
         # candidate ranking entirely (ref: the happy path through
         # extendSeedsPaired, aligner_sw_driver.cpp:1385)
-        fastcp, f_sc, f_ci = self._fast_cp(st1, st2)
-        if fastcp.any():
-            fastcp = self._commit_fast_cp(st1, st2, fastcp, f_sc, f_ci)
+        with trace.span("pe.fast", pairs=B) as sp:
+            fastcp, f_sc, f_ci = self._fast_cp(st1, st2)
+            if fastcp.any():
+                fastcp = self._commit_fast_cp(st1, st2, fastcp, f_sc, f_ci)
+            sp.set(fast=int(fastcp.sum()))
         scored1 = [None if fastcp[i]
                    else self.up.scored_candidates(st1, i) for i in range(B)]
         scored2 = [None if fastcp[i]
@@ -541,7 +553,11 @@ class PairedAligner:
             self.last_metrics.update(dp_mate_lt10=lt10, dp_mate_lt5=lt5,
                                      dp_mate_lt3=lt3)
         if jobs:
-            self._run_rescue(jobs, st1, st2, b1, b2)
+            # hits: the candidates rescue appended
+            with trace.span("pe.rescue", jobs=len(jobs)) as sp:
+                n0 = len(st1.cands) + len(st2.cands)
+                self._run_rescue(jobs, st1, st2, b1, b2)
+                sp.set(hits=len(st1.cands) + len(st2.cands) - n0)
             # recompute scored/combos for affected reads
             for i in {j[1] for j in jobs}:
                 scored1[i] = self.up.scored_candidates(st1, i)
@@ -549,9 +565,12 @@ class PairedAligner:
                 combos[i] = self._combos(st1, st2, i, scored1[i], scored2[i])
 
         # ---- per-pair decision (fast pairs are already committed) ----
-        for i in range(B):
-            if not fastcp[i]:
-                self._decide(st1, st2, i, scored1[i], scored2[i], combos[i])
+        with trace.span("pe.decide") as sp:
+            yt = [self._decide(st1, st2, i, scored1[i], scored2[i],
+                               combos[i])
+                  for i in range(B) if not fastcp[i]]
+            sp.set(pairs=len(yt), cp=yt.count("CP"), dp=yt.count("DP"),
+                   up=yt.count("UP"))
         return PairedRecs(st1.recs, st2.recs)
 
     def _run_rescue(self, jobs, st1, st2, b1, b2):
@@ -648,7 +667,16 @@ class PairedAligner:
             table[nci] = (rd_m[ci, : int(st_opp.lens[i])].copy(),
                           mm_m[ci, : int(st_opp.lens[i])].copy())
 
-    def _decide(self, st1, st2, i, s1, s2, combos):
+    def _mate_second(self, st, i, scored, ci):
+        """XS:i of a mate of a concordant pair that reports its candidate
+        ci: the best of its other candidates, which may pass its AS:i
+        (second_best's rule)."""
+        rank = next(k for k, (_, c) in enumerate(scored) if c == ci)
+        return self.up.second_best(st, i, scored, rank)
+
+    def _decide(self, st1, st2, i, s1, s2, combos) -> str:
+        """Fill pair i's two records; returns what they were reported as
+        (YT:Z: CP, DP or UP)."""
         r1, r2 = st1.recs[i], st2.recs[i]
         pe = self.pe
         # try concordant combos best-first
@@ -658,8 +686,12 @@ class PairedAligner:
             # be reportable and must not shift MAPQ (ref: bestUnchosenCScore
             # semantics, aln_sink.h AlnSetSumm)
             sec = next((c[0] for c in combos[rank + 1:] if c[5]), None)
-            ok1 = self.up.finish_candidate(st1, i, c1, sc1, None)
-            ok2 = self.up.finish_candidate(st2, i, c2, sc2, None)
+            # each mate's own second best gives its XS:i; the pair's MAPQ
+            # below replaces the mates' own
+            ok1 = self.up.finish_candidate(st1, i, c1, sc1,
+                                           self._mate_second(st1, i, s1, c1))
+            ok2 = self.up.finish_candidate(st2, i, c2, sc2,
+                                           self._mate_second(st2, i, s2, c2))
             if not (ok1 and ok2):
                 r1.aligned = r2.aligned = False
                 continue
@@ -686,7 +718,7 @@ class PairedAligner:
                 r.mate_aligned = True
                 r.pair_multi = len(combos) > 1
             self._set_mate_fields(r1, r2)
-            return
+            return "CP"
         # discordant: both mates align uniquely (ref: ReportingState —
         # discordant only considered with exactly one alignment each)
         if not self.no_discordant and len(s1) == 1 and len(s2) == 1 \
@@ -708,7 +740,7 @@ class PairedAligner:
                     r.mate_aligned = True
                     r.mapq = mq
                 self._set_mate_fields(r1, r2)
-                return
+                return "DP"
             r1.aligned = r2.aligned = False
         # mixed: unpaired selection per mate (suppressed by --no-mixed)
         if not self.no_mixed:
@@ -722,6 +754,7 @@ class PairedAligner:
         r1.mate_aligned = r2.aligned
         r2.mate_aligned = r1.aligned
         self._set_mate_fields(r1, r2)
+        return "UP"
 
     def _set_mate_fields(self, r1, r2):
         for r, other in ((r1, r2), (r2, r1)):

@@ -1644,6 +1644,22 @@ class UnpairedAligner:
             int(st.lens[i]), bsc, sec, kind, fi, fj, rd, mm, window, wstart,
             int(st.minsc[i]), int(st.perfect[i]), int(st.nceil[i]))
 
+    def second_best(self, st, i, scored, rank, start=0) -> int | None:
+        """The second best (XS:i, and the MAPQ's) of read i when it reports
+        candidate `rank` of `scored` (scored_candidates' list, best
+        first): the best score of scored[start:] other than that one (ref:
+        AlnSetSumm secbest; for a mate of a concordant pair it may pass
+        AS:i, Bowtie 2 manual, XS:i); with no other, the perfect score
+        where further exact copies exist (exact_mult counts those that
+        range clipping hid); else None. The unpaired selection and the
+        paired decision both take it from here."""
+        k = start + (start == rank)
+        if k < len(scored):
+            return scored[k][0]
+        if st.exact_mult[i] > self._resolve_cap() or st.exact_mult[i] > 1:
+            return int(st.perfect[i])   # other exact copies exist
+        return None
+
     def _select_unpaired(self, st, i) -> list:
         """Fill the read's primary record; with khits > 1 (-k) or -a,
         also return secondary records (SAM 0x100, MAPQ 255 — ref: -k
@@ -1670,12 +1686,8 @@ class UnpairedAligner:
             # preset DPS as a retry-streak cap (see SearchPolicy.dp_streak)
             if fail_streak > self.pol.dp_streak:
                 break
-            sec = None
-            if len(scored) > rank + 1:
-                sec = scored[rank + 1][0]
-            elif st.exact_mult[i] > self._resolve_cap() or \
-                    (st.exact_mult[i] > 1 and len(scored) == rank + 1):
-                sec = int(st.perfect[i])  # other exact copies exist
+            # the candidates ranked before this one were rejected
+            sec = self.second_best(st, i, scored, rank, start=rank)
             if not primary_done:
                 if self.finish_candidate(st, i, bci, bsc, sec):
                     primary_done = True

@@ -3,8 +3,10 @@ CPU: off it records nothing, its ring keeps its bound, `spans(t0, t1)`
 keeps the spans inside the interval; a round trip to a CPU `Bt2Server`
 over the socket gives each pack one queue, pack, records and SAM span,
 nested on the worker's thread, whose packs' reads add up to the reads
-sent; the fetch spans' interior DP problems equal the `--met` TSV's; and
--t prints its stage times from the recorder."""
+sent; the fetch spans' interior DP problems equal the `--met` TSV's; a
+paired batch gives one `pe.wait` holding its `pe.fast`, `pe.rescue` and
+`pe.decide`, whose counts add up to its pairs; and -t prints its stage
+times from the recorder."""
 import time
 from collections import Counter
 
@@ -253,3 +255,80 @@ def test_t_prints_stage_times_and_leaves_recorder_off(genome, tmp_path,
              if ln.startswith(("Time ", "Overall time"))]
     assert times == ["Time device_fetch", "Overall time"]
     assert not trace.enabled()
+
+
+def make_pairs(chroms, n, seed):
+    """n FR pairs of READ_LEN bp mates from 250-400 bp fragments, 0-2
+    substitutions a mate, mate 1 forward in half of them. Mate 2 of every
+    8th pair has a substitution every 16 bases (no seed survives, so mate
+    rescue finds it), every 8th (offset 3) has its mates 10 kbp apart
+    (discordant), every 8th (offset 5) a random mate 2 (mixed)."""
+    rng = np.random.default_rng(seed)
+    m1s, m2s = [], []
+    for p in range(n):
+        c = chroms[p % len(chroms)]
+        frag = int(rng.integers(250, 400))
+        st = int(rng.integers(0, len(c) - frag - 10_000))
+        end2 = st + frag + (10_000 if p % 8 == 3 else 0)
+        m1 = c[st : st + READ_LEN].copy()
+        m2 = (3 - c[end2 - READ_LEN : end2])[::-1].copy()
+        for m in (m1, m2):
+            for q in rng.choice(READ_LEN, int(rng.integers(0, 3)), False):
+                m[q] = (m[q] + 1) % 4
+        if p % 8 == 0:
+            at = np.arange(int(rng.integers(0, 16)), READ_LEN, 16)
+            m2[at] = (m2[at] + 1) % 4
+        elif p % 8 == 5:
+            m2 = rng.integers(0, 4, READ_LEN).astype(np.uint8)
+        if p % 2:
+            m1, m2 = m2, m1
+        m1s.append(dna.decode(m1))
+        m2s.append(dna.decode(m2))
+    return m1s, m2s
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["on", "off"])
+def test_paired_batch_spans(genome, on):
+    """A paired CPU batch: pe.wait counts its mates and holds pe.fast,
+    pe.rescue and pe.decide, in that order, on its thread; the fast path's
+    pairs and the decisions' CP, DP and UP add up to the pairs, as the
+    records' YT:Z says; rescue's hits are at most its jobs. With the
+    recorder off the batch records nothing."""
+    from bowtie2_server_tpu_torch.align.paired import PairedAligner
+    from bowtie2_server_tpu_torch.index.fm import FmIndex
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    chroms, base, _ = genome
+    n = 96
+    m1s, m2s = make_pairs(chroms, n, 6)
+    names = [f"p{k}".encode() for k in range(n)]
+    qual = [b"I" * READ_LEN] * n
+    pal = PairedAligner(FmIndex.load(base), device="cpu")
+    trace.disable()
+    if on:
+        trace.enable()
+    try:
+        t0 = time.time()
+        pairs = pal.align_batch(
+            make_batch(names, [m.encode() for m in m1s], qual),
+            make_batch(names, [m.encode() for m in m2s], qual))
+        got = [s for s in trace.spans(t0) if s.name.startswith("pe.")]
+    finally:
+        trace.disable()
+    if not on:
+        assert got == []
+        return
+    assert Counter(s.name for s in got) == Counter(
+        ["pe.wait", "pe.fast", "pe.rescue", "pe.decide"])
+    w, f, r, d = (next(s for s in got if s.name == k)
+                  for k in ("pe.wait", "pe.fast", "pe.rescue", "pe.decide"))
+    assert w.attrs == {"reads": 2 * n}
+    assert len({s.thread for s in got}) == 1
+    assert w.t0 <= f.t0 <= f.t1 <= r.t0 <= r.t1 <= d.t0 <= d.t1 <= w.t1
+    assert f.attrs["pairs"] == n
+    fast, cp, dp, up = (f.attrs["fast"], d.attrs["cp"], d.attrs["dp"],
+                        d.attrs["up"])
+    assert d.attrs["pairs"] == cp + dp + up == n - fast
+    assert fast > 0 and cp > 0 and dp > 0 and up > 0
+    yt = Counter(r1.yt for r1, _ in pairs)
+    assert yt == Counter({"CP": fast + cp, "DP": dp, "UP": up})
+    assert 0 < r.attrs["hits"] <= r.attrs["jobs"]
