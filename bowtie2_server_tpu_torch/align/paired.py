@@ -565,13 +565,51 @@ class PairedAligner:
                 combos[i] = self._combos(st1, st2, i, scored1[i], scored2[i])
 
         # ---- per-pair decision (fast pairs are already committed) ----
+        up = self.up
         with trace.span("pe.decide") as sp:
+            launched = self._hold_traces(st1, st2, fastcp, scored1, scored2,
+                                         combos)
+            bt0, held0, card0 = up.bt_ctr["bt"], up.tb_held, up.tb_card
             yt = [self._decide(st1, st2, i, scored1[i], scored2[i],
                                combos[i])
                   for i in range(B) if not fastcp[i]]
+            # tb: the decisions' traceback passes (the --met Bt counter's
+            # increase); tb_held: those that took a held trace; tb_card: of
+            # those, the ones the CUDA kernel ran; launched: the problems
+            # sent to the batches
             sp.set(pairs=len(yt), cp=yt.count("CP"), dp=yt.count("DP"),
-                   up=yt.count("UP"))
+                   up=yt.count("UP"), tb=up.bt_ctr["bt"] - bt0,
+                   tb_held=up.tb_held - held0, tb_card=up.tb_card - card0,
+                   launched=launched)
         return PairedRecs(st1.recs, st2.recs)
+
+    def _hold_traces(self, st1, st2, fastcp, scored1, scored2, combos):
+        """Trace, one batch a mate (`trace_band_batch`), the candidates that
+        `_decide` commits first: each mate's of the pair's first combo, or
+        where there is none each mate's best scored candidate (what the
+        discordant branch and `_select_unpaired` try first). The traces
+        are held on the states (`st.held_tb`, and `st.held_card` those the
+        kernel ran) for `finish_candidate`; any other candidate is traced
+        there on the host. Returns the number of tracebacks sent to the
+        batches."""
+        want = ([], []), ([], [])     # per mate: candidates, their scores
+        for i in np.nonzero(~fastcp)[0].tolist():
+            if combos[i]:
+                _, sc1, c1, sc2, c2, _ = combos[i][0]
+                heads = (sc1, c1), (sc2, c2)
+            else:
+                heads = (scored1[i][0] if scored1[i] else None,
+                         scored2[i][0] if scored2[i] else None)
+            for (cis, scores), h in zip(want, heads):
+                if h is not None:
+                    scores.append(h[0])
+                    cis.append(h[1])
+        launched = 0
+        for st, (cis, scores) in zip((st1, st2), want):
+            st.held_tb, st.held_card = self.up.trace_band_batch(st, cis,
+                                                                scores)
+            launched += sum(tr[4] for tr in st.held_tb.values())
+        return launched
 
     def _run_rescue(self, jobs, st1, st2, b1, b2):
         """Rectangle DP of the missing mate over fragment windows, batched;

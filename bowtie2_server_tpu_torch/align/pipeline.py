@@ -147,7 +147,7 @@ class AlnRec:
     secondary: bool = False  # SAM 0x100 (for -k/-a extra records)
     seq: bytes = b""        # aligned-strand sequence (SAM SEQ)
     qual: bytes = b""
-    # original-orientation read, the source of truth for SEQ/QUAL: _finish
+    # original-orientation read, the source of truth for SEQ/QUAL: _commit
     # may run more than once on a record (paired combo retries), so it must
     # always re-derive rather than mutate seq/qual in place
     orig_seq: bytes = b""
@@ -562,8 +562,12 @@ class UnpairedAligner:
         # cells walked)
         self.bt_ctr = {"bt": 0, "btfail": 0, "btsucc": 0, "btcell": 0}
         # of those passes, the band tracebacks the CUDA kernel ran
-        # (_finish_gapped), for the up.select span's tb_card
+        # (_finish_gapped, and the held traces finish_candidate commits),
+        # for the up.select and pe.decide spans' tb_card
         self.tb_card = 0
+        # of those passes, the ones finish_candidate took from the state's
+        # held traces (st.held_tb), for the pe.decide span's tb_held
+        self.tb_held = 0
         # per-read-length gap-budget cache for tallyGappedDp (_build_state)
         self._gapclass_cache: dict[int, int] = {}
         self.want_met = False   # --met consumer attached: collect the
@@ -1106,49 +1110,62 @@ class UnpairedAligner:
 
     def _finish_gapped(self, st, reads, scores, secs) -> np.ndarray:
         """Trace and commit the fused winners of `reads` that the device did
-        not certify ungapped: the per-read `finish_candidate` of each (the
-        same rows and windows, from st.read_arrays and st.fin_info), with
-        the tracebacks of all of them in one `banded_traceback_batch` call
-        (the CUDA kernel on a card; on the rect side stream, which does not
-        wait for the fused batches in flight). Returns the [n] mask of the
-        reads committed; a rejected read stays for the per-read loop."""
-        K = self.band
+        not certify ungapped: the per-read `finish_candidate` of each, with
+        the tracebacks of all of them in one `trace_band_batch` call.
+        Returns the [n] mask of the reads committed; a rejected read stays
+        for the per-read loop."""
         cis = st.res.best_ci[reads].tolist()
-        rows = [st.read_arrays(ci) for ci in cis]   # (rd, mm, rl)
-        fins = [st.fin_info[ci] for ci in cis]   # (kind, bi, bk, window, ws)
-        traces = [self._ungapped_band(rl, int(sc), bi, bk, rd, mm, window)
-                  for (rd, mm, rl), (_, bi, bk, window, _), sc
-                  in zip(rows, fins, scores)]
-        need = [t for t, tr in enumerate(traces) if tr is None]
-        if need:
-            lens = np.array([rows[t][2] for t in need], np.int64)
-            L = int(lens.max())
-            rd = np.zeros((len(need), L), np.uint8)
-            mm = np.zeros((len(need), L), np.int32)
-            band = np.full((len(need), L + K), 4, np.uint8)
-            for r, t in enumerate(need):
-                s, q, rl = rows[t]
-                rd[r, :rl], mm[r, :rl] = s, q
-                band[r, : len(fins[t][3])] = fins[t][3]
-            bi = np.array([fins[t][1] for t in need], np.int64)
-            bk = np.array([fins[t][2] for t in need], np.int64)
-            with self.rect_stream():
-                got, on_card = banded_traceback_batch(
-                    rd, mm, band, lens, bi, bk, self.sw_cfg, K,
-                    device=self.device)
-            self.tb_card += int(on_card.sum())
-            for t, (edits, start_col, read_start) in zip(need, got):
-                traces[t] = (edits, start_col, read_start, fins[t][1] + 1,
-                             True)
+        traces, card = self.trace_band_batch(st, cis, scores)
+        self.tb_card += len(card)
         ok = np.zeros(len(reads), bool)
         for t, i in enumerate(reads.tolist()):
-            kind, _, _, window, wstart = fins[t]
+            kind, _, _, window, wstart = st.fin_info[cis[t]]
             ok[t] = self._commit(
-                st.recs[i], i, st.cands[cis[t]][1], rows[t][2],
+                st.recs[i], i, st.cands[cis[t]][1], int(st.lens[i]),
                 int(scores[t]), secs[t], kind, window, wstart,
                 int(st.minsc[i]), int(st.perfect[i]), int(st.nceil[i]),
-                traces[t])
+                traces[cis[t]])
         return ok
+
+    def trace_band_batch(self, st, cis, scores):
+        """`_trace` of the band candidates `cis` (scored `scores`), with the
+        tracebacks of all of them in one `banded_traceback_batch` call (the
+        CUDA kernel on a card; on the rect side stream, which does not wait
+        for the fused batches in flight): the same rows and windows as
+        `finish_candidate`, from st.read_arrays and st.fin_info. A candidate
+        of another kind is left out. -> ({ci: _trace's tuple}, the set of
+        the candidates whose traceback the kernel ran)."""
+        K = self.band
+        traces, need = {}, []
+        for ci, sc in zip(cis, scores):
+            kind, bi, bk, window, _ = st.fin_info[ci]
+            if kind != "band":
+                continue
+            rd, mm, rl = st.read_arrays(ci)
+            tr = self._ungapped_band(rl, int(sc), bi, bk, rd, mm, window)
+            if tr is None:
+                need.append((ci, rd, mm, rl, bi, bk, window))
+            else:
+                traces[ci] = tr
+        if not need:
+            return traces, set()
+        L = max(p[3] for p in need)
+        rd = np.zeros((len(need), L), np.uint8)
+        mm = np.zeros((len(need), L), np.int32)
+        band = np.full((len(need), L + K), 4, np.uint8)
+        for r, (_, s, q, rl, _, _, window) in enumerate(need):
+            rd[r, :rl], mm[r, :rl] = s, q
+            band[r, : len(window)] = window
+        lens = np.array([p[3] for p in need], np.int64)
+        bi = np.array([p[4] for p in need], np.int64)
+        bk = np.array([p[5] for p in need], np.int64)
+        with self.rect_stream():
+            got, on_card = banded_traceback_batch(
+                rd, mm, band, lens, bi, bk, self.sw_cfg, K,
+                device=self.device)
+        for p, (edits, start_col, read_start) in zip(need, got):
+            traces[p[0]] = (edits, start_col, read_start, p[4] + 1, True)
+        return traces, {p[0] for p, c in zip(need, on_card) if c}
 
     def _soa_from_best(self, st, wu, fw, ref_id, pos, score, sec_has, sec,
                        mapq, nm, rl, jp) -> FastSoA:
@@ -1503,7 +1520,7 @@ class UnpairedAligner:
         C = len(cands)
         best = np.full(C, NEG_INF, np.int64)
         end_joined = np.full(C, -1, np.int64)
-        fin_info = [None] * C  # what _finish needs per candidate
+        fin_info = [None] * C  # what finish_candidate needs per candidate
 
         def read_arrays(ci):
             i, is_fw, _ = cands[ci]
@@ -1635,14 +1652,25 @@ class UnpairedAligner:
 
     def finish_candidate(self, st, i, ci, bsc, sec, rec=None) -> bool:
         """Traceback + commit candidate ci of read i into rec (default:
-        the read's record). Returns False if the candidate is rejected."""
-        rd, mm, _ = st.read_arrays(ci)
-        _, is_fw, diag = st.cands[ci]
+        the read's record). Returns False if the candidate is rejected.
+        Where the state holds ci's trace (`st.held_tb` and `st.held_card`,
+        set by the paired aligner from `trace_band_batch`), that trace is
+        committed."""
+        _, is_fw, _ = st.cands[ci]
         kind, fi, fj, window, wstart = st.fin_info[ci]
-        return self._finish(
-            rec if rec is not None else st.recs[i], i, is_fw,
-            int(st.lens[i]), bsc, sec, kind, fi, fj, rd, mm, window, wstart,
-            int(st.minsc[i]), int(st.perfect[i]), int(st.nceil[i]))
+        rl = int(st.lens[i])
+        held = getattr(st, "held_tb", None)
+        tr = held.get(ci) if held else None
+        if tr is None:
+            rd, mm, _ = st.read_arrays(ci)
+            tr = self._trace(rl, bsc, kind, fi, fj, rd, mm, window)
+        elif tr[4]:
+            self.tb_held += 1
+            self.tb_card += ci in st.held_card
+        return self._commit(
+            rec if rec is not None else st.recs[i], i, is_fw, rl, bsc, sec,
+            kind, window, wstart, int(st.minsc[i]), int(st.perfect[i]),
+            int(st.nceil[i]), tr)
 
     def second_best(self, st, i, scored, rank, start=0) -> int | None:
         """The second best (XS:i, and the MAPQ's) of read i when it reports
@@ -1724,17 +1752,6 @@ class UnpairedAligner:
             else:
                 fail_streak += 1
         return extras
-
-    def _finish(self, rec: AlnRec, i, is_fw, rl, bsc, sec, kind, bi, bk,
-                rd, mm, window, wstart, msc, per, nc) -> bool:
-        """bi/bk: DP end cell (band coords for kind='band', rectangle
-        row/col for kind='rect'); window: ref codes starting at joined
-        position wstart. Returns False if the candidate must be rejected
-        (run straddle or N-ceiling), so the caller can try the next one."""
-        return self._commit(rec, i, is_fw, rl, bsc, sec, kind, window,
-                            wstart, msc, per, nc,
-                            self._trace(rl, bsc, kind, bi, bk, rd, mm,
-                                        window))
 
     def _ungapped_band(self, rl, bsc, bi, bk, rd, mm, window):
         """The trace of a band winner that is the pure diagonal along band
