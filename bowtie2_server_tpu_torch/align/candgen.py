@@ -1063,7 +1063,8 @@ class CandGen:
             raise ValueError(f"the mesh's first device {self.devices[0]} "
                              f"is not {self.device}")
         self.big = dev_fw.big
-        self._sticky = 1   # sticky size_mult after an overflow escalation
+        # sticky size_mult: the largest escalation that fetch saw succeed
+        self._sticky = 1
         self.didx = make_device_index(idx, self.device, dev_fw, dev_mirror)
         self._didx = {d: replicate(self.didx, d)
                       for d in distinct}
@@ -1256,7 +1257,8 @@ class CandGen:
             boost_thresh=getattr(pol, "boost_thresh", 300),
             no_exact_up=getattr(pol, "no_exact_upfront", False),
             no_1mm_up=getattr(pol, "no_1mm_upfront", False))
-        return self._launch(B0, cfg, dkm, packed, meta, mmtab)
+        return (*self._launch(B0, cfg, dkm, packed, meta, mmtab),
+                size_mult)
 
     def _launch(self, B0, cfg, dkm, packed, meta, mmtab):
         with trace.span("cg.enqueue"):
@@ -1267,10 +1269,14 @@ class CandGen:
     def fetch(self, handle) -> BatchResult:
         """Wait for a dispatch's shards and decode their output. Its span
         counts the banded problems launched (C_max a shard) and the
-        interior ones among them (the counter row's DPEx, ctr[6])."""
-        B0, cfg, shards = handle
+        interior ones among them (the counter row's DPEx, ctr[6]). A
+        dispatch escalated past the sticky size multiple that does not
+        overflow makes its multiple sticky."""
+        B0, cfg, shards, size_mult = handle
         with trace.span("cg.fetch",
                         launched=cfg.C_max * len(shards)) as sp:
             res = BatchResult(B0, _gather(shards), cfg, len(shards), self.K)
             sp.set(valid=int(res.counters[:, 6].sum()))
+        if not res.overflow:
+            self._sticky = max(self._sticky, size_mult)
         return res

@@ -30,8 +30,8 @@ from ..ops.sw import NEG_INF, sw_align_batch
 from ..utils import dna, trace
 from ..utils.rng import RandomSource, select_by_score_order
 from .mapq import mapq_batch, mapq_fn
-from .pipeline import (AlnRec, BigCapacityError, ConcatRecs,
-                       LazyRecs, SearchPolicy, UnpairedAligner, revcomp_batch)
+from .pipeline import (AlnRec, BigCapacityError, ConcatRecs, SearchPolicy,
+                       UnpairedAligner, pack_rect)
 
 CONCORDANT, DISCORDANT = 1, 0
 
@@ -338,7 +338,7 @@ class PairedAligner:
             return zero, None, None
         out_sc, out_ci, singles, offs, fws, lens = [], [], [], [], [], []
         for st in (st1, st2):
-            res = getattr(st, "sel", None)   # None: a host-path state
+            res = st.res   # None: a host-path state
             if res is None or len(res.c_read) == 0:
                 return zero, None, None
             NEGH = NEG_INF // 2
@@ -348,7 +348,7 @@ class PairedAligner:
             # None, so the mate carries no XS:i
             ex = st.exact_mult
             single = (has & ~res.has_rect & (res.sec_sc <= NEGH)
-                      & (ex <= 1) & (ex <= self.up._resolve_cap())
+                      & ~self.up.exact_copies_hidden(ex)
                       & res.c_ungapped[k] & ~st.filtered)
             out_sc.append(res.c_score[k].astype(np.int64))
             out_ci.append(k)
@@ -410,7 +410,7 @@ class PairedAligner:
         tl2 = np.where(eq, -tl, tl2)
         for st, me, other, m1, tln in ((st1, c1, c2, True, tl1),
                                        (st2, c2, c1, False, tl2)):
-            soa = self.up._soa_from_best(
+            soa = self.up.soa_from_best(
                 st, w, me["fw"], me["ref_id"], me["pos"], me["sc"],
                 np.zeros(n, bool), np.zeros(n, np.int64), mapq,
                 me["nm"], me["rl"], me["jp"])
@@ -499,8 +499,7 @@ class PairedAligner:
                 self.up.apply_seed_skip(st2, skip2)
         # per-batch --met counters, both mates summed (ref: the paired
         # halves of the PerfMetrics merge, bt2_search.cpp:3229-3248)
-        m1 = getattr(st1.recs, "metrics", {})
-        m2 = getattr(st2.recs, "metrics", {})
+        m1, m2 = st1.metrics, st2.metrics
         self.last_metrics = {k: m1.get(k, 0) + m2.get(k, 0)
                              for k in set(m1) | set(m2)}
         B = st1.B
@@ -539,14 +538,10 @@ class PairedAligner:
         if self.up.want_met and jobs:
             # DPMateLt* gap classes (ref: tallyGappedDp on the mate-search
             # DPs, aligner_sw_common.h:246): the rescued mate's budget
-            gc, sc = self.up._gapclass_cache, self.up.sc
             lt10 = lt5 = lt3 = 0
             for which, i, _, _, _ in jobs:
-                rl = int((b2 if which == "2" else b1).lens[i])
-                mx = gc.get(rl)
-                if mx is None:
-                    mx = max(sc.max_gaps(rl, "read"), sc.max_gaps(rl, "ref"))
-                    gc[rl] = mx
+                mx = self.up.gap_budget(
+                    int((b2 if which == "2" else b1).lens[i]))
                 lt10 += mx < 10
                 lt5 += mx < 5
                 lt3 += mx < 3
@@ -556,7 +551,7 @@ class PairedAligner:
             # hits: the candidates rescue appended
             with trace.span("pe.rescue", jobs=len(jobs)) as sp:
                 n0 = len(st1.cands) + len(st2.cands)
-                self._run_rescue(jobs, st1, st2, b1, b2)
+                self._run_rescue(jobs, st1, st2)
                 sp.set(hits=len(st1.cands) + len(st2.cands) - n0)
             # recompute scored/combos for affected reads
             for i in {j[1] for j in jobs}:
@@ -569,29 +564,25 @@ class PairedAligner:
         with trace.span("pe.decide") as sp:
             launched = self._hold_traces(st1, st2, fastcp, scored1, scored2,
                                          combos)
-            bt0, held0, card0 = up.bt_ctr["bt"], up.tb_held, up.tb_card
+            bt0, card0 = up.bt_ctr["bt"], up.tb_card
             yt = [self._decide(st1, st2, i, scored1[i], scored2[i],
                                combos[i])
                   for i in range(B) if not fastcp[i]]
             # tb: the decisions' traceback passes (the --met Bt counter's
-            # increase); tb_held: those that took a held trace; tb_card: of
-            # those, the ones the CUDA kernel ran; launched: the problems
-            # sent to the batches
+            # increase); tb_card: those the CUDA kernel ran; launched: the
+            # problems _hold_traces sent to the batches
             sp.set(pairs=len(yt), cp=yt.count("CP"), dp=yt.count("DP"),
                    up=yt.count("UP"), tb=up.bt_ctr["bt"] - bt0,
-                   tb_held=up.tb_held - held0, tb_card=up.tb_card - card0,
-                   launched=launched)
+                   tb_card=up.tb_card - card0, launched=launched)
         return PairedRecs(st1.recs, st2.recs)
 
     def _hold_traces(self, st1, st2, fastcp, scored1, scored2, combos):
-        """Trace, one batch a mate (`trace_band_batch`), the candidates that
+        """Trace, one `trace_candidates` call a mate, the candidates that
         `_decide` commits first: each mate's of the pair's first combo, or
         where there is none each mate's best scored candidate (what the
-        discordant branch and `_select_unpaired` try first). The traces
-        are held on the states (`st.held_tb`, and `st.held_card` those the
-        kernel ran) for `finish_candidate`; any other candidate is traced
-        there on the host. Returns the number of tracebacks sent to the
-        batches."""
+        discordant branch and `select_unpaired` try first). Their traces
+        stay in the states for `finish_candidate`. Returns the number of
+        tracebacks sent to the batches."""
         want = ([], []), ([], [])     # per mate: candidates, their scores
         for i in np.nonzero(~fastcp)[0].tolist():
             if combos[i]:
@@ -604,20 +595,15 @@ class PairedAligner:
                 if h is not None:
                     scores.append(h[0])
                     cis.append(h[1])
-        launched = 0
-        for st, (cis, scores) in zip((st1, st2), want):
-            st.held_tb, st.held_card = self.up.trace_band_batch(st, cis,
-                                                                scores)
-            launched += sum(tr[4] for tr in st.held_tb.values())
-        return launched
+        return sum(self.up.trace_candidates(st, cis, scores)
+                   for st, (cis, scores) in zip((st1, st2), want))
 
-    def _run_rescue(self, jobs, st1, st2, b1, b2):
+    def _run_rescue(self, jobs, st1, st2):
         """Rectangle DP of the missing mate over fragment windows, batched;
         successful hits are appended as new candidates."""
         up = self.up
-        idx = up.idx
-        joined = idx.joined
-        lq = 0
+        joined = up.idx.joined
+        lq = 1
         eff_maxfrag = self.pe.maxfrag
         for which, i, opp_fw, wl, wr in jobs:
             st_opp = st2 if which == "2" else st1
@@ -628,82 +614,39 @@ class PairedAligner:
                 # (classify's expand_to_fit), so the window must too
                 eff_maxfrag = max(eff_maxfrag, int(st_opp.lens[i]),
                                   int(st_anc.lens[i]))
-        lq = -(-max(lq, 1) // 64) * 64
         wmax = -(-(eff_maxfrag + 64) // 128) * 128
-        C = len(jobs)
-        rd_m = np.full((C, lq), 5, np.uint8)
-        mm_m = np.zeros((C, lq), np.int32)
-        ref_m = np.full((C, wmax), 4, np.uint8)
-        clens = np.zeros(C, np.int32)
-        wlens = np.zeros(C, np.int32)
-        metas = []
-        mmtab = up.sc.mm_penalties()
-        for ci, (which, i, opp_fw, wl, wr) in enumerate(jobs):
-            st_opp = st2 if which == "2" else st1
-            b_opp = b2 if which == "2" else b1
-            rl = int(st_opp.lens[i])
-            seqs, quals = b_opp.seqs, b_opp.quals
-            if not opp_fw:
-                seqs, quals = revcomp_batch(
-                    seqs[i : i + 1], quals[i : i + 1],
-                    st_opp.lens[i : i + 1])
-                rd = seqs[0, :rl]
-                qu = quals[0, :rl]
-            else:
-                rd = seqs[i, :rl]
-                qu = quals[i, :rl]
-            wl = max(0, int(wl))
-            wr = min(idx.n, int(wr))
-            if wr <= wl:
-                metas.append(None)
-                continue
-            rd_m[ci, :rl] = rd
-            mm_m[ci, :rl] = mmtab[np.clip(qu, 0, 255)]
-            clens[ci] = rl
-            width = min(wr - wl, wmax)
-            ref_m[ci, :width] = joined[wl : wl + width]
-            wlens[ci] = width
-            metas.append((which, i, opp_fw, wl))
+        reads, refs = [], []
+        for which, i, opp_fw, wl, wr in jobs:
+            wl, wr = max(0, int(wl)), min(up.idx.n, int(wr))
+            ok = wr > wl
+            reads.append((st2 if which == "2" else st1).read_row(i, opp_fw)
+                         if ok else None)
+            refs.append(joined[wl : wl + min(wr - wl, wmax)] if ok else None)
+        rd_m, mm_m, ref_m, clens, wlens = pack_rect(reads, refs, lq, wmax)
         if self.dp_log_opp is not None:
             # --log-dp-opp: opposite-mate DP problems in the same
             # read<TAB>window format as --dp-log (ref: bt2_dp.cpp replay)
-            for ci in range(C):
-                if metas[ci] is None:
-                    continue
-                self.dp_log_opp.write(
-                    dna.decode(rd_m[ci, : int(clens[ci])]) + "\t"
-                    + dna.decode(ref_m[ci, : int(wlens[ci])]) + "\n")
+            for t, r in enumerate(reads):
+                if r is not None:
+                    self.dp_log_opp.write(
+                        dna.decode(rd_m[t, : int(clens[t])]) + "\t"
+                        + dna.decode(ref_m[t, : int(wlens[t])]) + "\n")
         # on CUDA the unpaired rect DP's side stream (rect_stream): on the
         # main stream the copies would wait for both mates' fused batches
         with up.rect_stream():
             best, bi, bj = sw_align_batch(
                 rd_m, np.maximum(clens, 1), mm_m, ref_m, wlens, up.sw_cfg,
                 device=up.device)
-        for ci, meta in enumerate(metas):
-            if meta is None:
-                continue
-            which, i, opp_fw, wl = meta
+        hits = {"1": [], "2": []}
+        for t, (which, i, opp_fw, wl, _) in enumerate(jobs):
             st_opp = st2 if which == "2" else st1
-            if best[ci] < st_opp.minsc[i]:
+            if reads[t] is None or best[t] < st_opp.minsc[i]:
                 continue
-            # append as a new candidate of the opposite mate
-            nci = len(st_opp.cands)
-            st_opp.cands.append((i, bool(opp_fw), wl + int(bj[ci])
-                                 - int(st_opp.lens[i]) + 1))
-            st_opp.best = np.append(st_opp.best, int(best[ci]))
-            st_opp.end_joined = np.append(st_opp.end_joined,
-                                          wl + int(bj[ci]))
-            st_opp.fin_info.append(
-                ("rect", int(bi[ci]), int(bj[ci]),
-                 ref_m[ci, : int(wlens[ci])].copy(), wl))
-            st_opp.by_read.setdefault(i, []).append(nci)
-            # register read arrays for the new candidate
-            table = getattr(st_opp, "rescue_arrays", None)
-            if table is None:
-                table = st_opp.rescue_arrays = {}
-                st_opp.read_arrays = _with_rescued(st_opp.read_arrays, table)
-            table[nci] = (rd_m[ci, : int(st_opp.lens[i])].copy(),
-                          mm_m[ci, : int(st_opp.lens[i])].copy())
+            hits[which].append((i, bool(opp_fw), max(0, int(wl)),
+                                int(best[t]), int(bi[t]), int(bj[t]),
+                                ref_m[t, : int(wlens[t])].copy()))
+        st1.add_rescued(hits["1"])
+        st2.add_rescued(hits["2"])
 
     def _mate_second(self, st, i, scored, ci):
         """XS:i of a mate of a concordant pair that reports its candidate
@@ -782,8 +725,8 @@ class PairedAligner:
             r1.aligned = r2.aligned = False
         # mixed: unpaired selection per mate (suppressed by --no-mixed)
         if not self.no_mixed:
-            self.up._select_unpaired(st1, i)
-            self.up._select_unpaired(st2, i)
+            self.up.select_unpaired(st1, i)
+            self.up.select_unpaired(st2, i)
         for r, m1 in ((r1, True), (r2, False)):
             r.yt = "UP"
             r.paired = True
@@ -837,17 +780,6 @@ class PairedAligner:
             r1.tlen = r2.tlen = 0
         r1.ys = r2.score if (as_pair and r2.aligned) else None
         r2.ys = r1.score if (as_pair and r1.aligned) else None
-
-
-def _with_rescued(orig, table):
-    """`read_arrays` that serves the rescue-added candidates in `table`
-    (candidate index -> (read codes, penalties)) and defers to `orig`."""
-    def ra(ci):
-        if ci in table:
-            rd, mm = table[ci]
-            return rd, mm, len(rd)
-        return orig(ci)
-    return ra
 
 
 def _lead_clip(r: AlnRec) -> int:

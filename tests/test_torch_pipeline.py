@@ -25,6 +25,7 @@ from bowtie2_server_tpu_torch.io.sam import sam_record  # noqa: E402
 from bowtie2_server_tpu_torch.ops.sw_banded import KERNEL_BANDS  # noqa: E402
 from bowtie2_server_tpu_torch.utils.presets import (  # noqa: E402
     preset_params as t_preset_params)
+from torch_tiles import indel_reads  # noqa: E402
 
 READ_LEN = 100
 
@@ -194,32 +195,11 @@ def test_cli_refuses_other_options(capsys):
 def indel_workload():
     """A 300 kbp genome (the port's own index) and 4096 reads of 100 bp cut
     from it, either strand, 0-3 substitutions, one in eight with a planted
-    insertion or deletion of 1-3 bases: the gapped winners
-    _finish_gapped traces together."""
+    insertion or deletion of 1-3 bases (`torch_tiles.indel_reads`): the
+    gapped winners _finish_gapped traces together."""
     from bowtie2_server_tpu_torch.index.build import build_index as tbuild
-    rng = np.random.default_rng(3)
-    g = rng.integers(0, 4, 300_000).astype(np.uint8)
-    idx = tbuild(">c0\n" + dna.decode(g) + "\n")
-    names, seqs = [], []
-    for k in range(4096):
-        s = int(rng.integers(0, len(g) - 120))
-        r = list(g[s : s + 110])
-        if k % 8 == 0:
-            p = int(rng.integers(10, 90))
-            if k % 16 == 0:
-                del r[p : p + int(rng.integers(1, 4))]
-            else:
-                r[p:p] = list(rng.integers(0, 4, int(rng.integers(1, 4))))
-        r = np.array(r[:READ_LEN], np.uint8)
-        for p in rng.choice(READ_LEN, int(rng.integers(0, 4)), False):
-            r[p] = (r[p] + 1) % 4
-        if k % 2:
-            r = (3 - r)[::-1]
-        names.append(f"r{k}")
-        seqs.append(dna.decode(r).encode())
-    quals = [bytes(rng.integers(35, 74, READ_LEN).astype(np.uint8))
-             for _ in range(4096)]
-    return idx, (names, seqs, quals)
+    fasta, names, seqs, quals = indel_reads(4096, READ_LEN)
+    return tbuild(fasta), (names, seqs, quals)
 
 
 def per_read_gapped(self, st, reads, scores, secs):
@@ -297,6 +277,7 @@ def test_rejected_gapped_winners_fall_to_the_slow_loop(indel_workload,
     assert al.bt_ctr["btfail"] == 2
     assert al.bt_ctr["btsucc"] == al.bt_ctr["bt"] - 2
     for i in np.nonzero(~handled)[0]:
-        al._select_unpaired(st, i)
-    # the loop traced both again, and rejected them again
+        al.select_unpaired(st, i)
+    # the loop committed both again from their traces, and rejected them
+    # again
     assert al.bt_ctr["btfail"] >= 4

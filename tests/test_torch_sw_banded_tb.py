@@ -1,7 +1,8 @@
 """The traceback kernel (ops/csrc/sw_banded_tb.cu) on the card: bit for bit
-the numpy oracle `banded_traceback` on random problems, and a served pack
-of the benchmark configuration's reads gives the same SAM and the same
---met traceback counts on 'cuda' as on 'cpu'. Every test here needs a
+the numpy oracle `banded_traceback` on random problems, the per-read
+selection loop traces on it one candidate at a time, and a served pack of
+the benchmark configuration's reads gives the same SAM and the same --met
+traceback counts on 'cuda' as on 'cpu'. Every test here needs a
 CUDA device and skips without one; none imports JAX, so on a machine with
 the card run them with
     python -m pytest --noconftest tests/test_torch_sw_banded_tb.py -q
@@ -17,7 +18,7 @@ torch = pytest.importorskip("torch")
 from bowtie2_server_tpu_torch.ops import kernels  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw as tsw  # noqa: E402
 from bowtie2_server_tpu_torch.ops import sw_banded as tsb  # noqa: E402
-from torch_tiles import CFGS, traceback_problems  # noqa: E402
+from torch_tiles import CFGS, indel_reads, traceback_problems  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 # problems a (band, scoring) case: 3 bands x 4 scorings x 850 = 10200
@@ -130,3 +131,37 @@ def test_served_pack_cuda_equals_cpu(cuda_device, tmp_path):
     assert ctrs["cuda"] == ctrs["cpu"]
     assert launches["sw_banded_tb"] >= 1
     assert ctrs["cuda"]["bt"] > 100 and tb_card >= 0.9 * ctrs["cuda"]["bt"]
+
+
+@pytest.mark.parametrize("local", [False, True], ids=["e2e", "local"])
+def test_slow_loop_traces_on_the_card(local, cuda_device):
+    """The per-read selection loop (`select_unpaired`) over every read of
+    a batch with planted indels (`torch_tiles.indel_reads`; 1024 reads
+    end-to-end, 256 in --local): each candidate it commits is traced
+    alone, and on the card at least 99% of those tracebacks run on the
+    kernel; the records and the Bt/BtSucc/BtFail/BtCell counts are the
+    CPU's."""
+    from bowtie2_server_tpu_torch.align.pipeline import (SearchPolicy,
+                                                         UnpairedAligner)
+    from bowtie2_server_tpu_torch.index.build import build_index
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.io.sam import sam_record
+    from bowtie2_server_tpu_torch.utils.presets import preset_params
+    fasta, names, seqs, quals = indel_reads(256 if local else 1024)
+    idx = build_index(fasta)
+    sc, pol = preset_params(None, local)
+    batch = make_batch(names, seqs, quals)
+    sams, ctrs, card = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        al = UnpairedAligner(idx, scoring=sc, policy=SearchPolicy(**pol),
+                             device=dev)
+        st = al.collect(batch)
+        for i in range(len(names)):
+            al.select_unpaired(st, i)
+        sams[dev] = [sam_record(st.recs[i], idx.ref_names)
+                     for i in range(len(names))]
+        ctrs[dev], card[dev] = dict(al.bt_ctr), al.tb_card
+    assert sams["cuda"] == sams["cpu"]
+    assert ctrs["cuda"] == ctrs["cpu"]
+    assert ctrs["cuda"]["bt"] > (200 if local else 100)
+    assert card["cpu"] == 0 and card["cuda"] >= 0.99 * ctrs["cuda"]["bt"]

@@ -426,3 +426,33 @@ def emulate_traceback_kernel(rd, mm, band, rl, bi, bk, cfg, K, cap):
             if not d & TB_FX:
                 state = 0
     return edits[::-1], i + k, i
+
+
+def indel_reads(n=4096, read_len=100, seed=3):
+    """A 300 kbp random genome (FASTA text) and n reads of read_len cut
+    from it, either strand, 0-3 substitutions, one in eight with a planted
+    insertion or deletion of 1-3 bases: the aligner's gapped winners. ->
+    (fasta, names, seqs, quals)."""
+    rng = np.random.default_rng(seed)
+    abc = np.frombuffer(b"ACGTN", np.uint8)
+    g = rng.integers(0, 4, 300_000).astype(np.uint8)
+    names, seqs = [], []
+    for k in range(n):
+        s = int(rng.integers(0, len(g) - 120))
+        r = list(g[s : s + 110])
+        if k % 8 == 0:
+            p = int(rng.integers(10, 90))
+            if k % 16 == 0:
+                del r[p : p + int(rng.integers(1, 4))]
+            else:
+                r[p:p] = list(rng.integers(0, 4, int(rng.integers(1, 4))))
+        r = np.array(r[:read_len], np.uint8)
+        for p in rng.choice(read_len, int(rng.integers(0, 4)), False):
+            r[p] = (r[p] + 1) % 4
+        if k % 2:
+            r = (3 - r)[::-1]
+        names.append(f"r{k}")
+        seqs.append(abc[r].tobytes())
+    quals = [bytes(rng.integers(35, 74, read_len).astype(np.uint8))
+             for _ in range(n)]
+    return ">c0\n" + abc[g].tobytes().decode() + "\n", names, seqs, quals
