@@ -35,9 +35,11 @@ another device.
 from __future__ import annotations
 
 import asyncio
+import itertools
 
-from ..align.paired import PairedAligner
-from ..align.pipeline import SearchPolicy
+from .. import native
+from ..align.paired import PairedAligner, PairedRecs
+from ..align.pipeline import LazyRecs, SearchPolicy
 from ..io.fastq import make_batch
 from ..io.sam import sam_record
 from ..parallel.mesh import Mesh, device_scope
@@ -87,6 +89,9 @@ class Bt2Server:
             host, _, port = addr.rpartition(":")
             workers.append(("remote", host, int(port), self.index_name))
         self._dispatch = AlignDispatcher(workers)
+        # the SAM emitter's library: a changed source builds here, in the
+        # set-up, and not in the first pack
+        native.get_lib()
         self.batch_size = batch_size
         self._conn_seq = 0
         self._server = None
@@ -150,11 +155,9 @@ class Bt2Server:
         # thread starts on card 0): the rect DP and mate rescue run there;
         # a mesh's shards enter their own cards
         with trace.span("srv.pack") as sp, device_scope(up.device):
-            recs, n = _row_records(up, pal, rows)
-            sp.set(reads=n)
-            with trace.span("srv.sam"):
-                return ("\n".join(_sam_lines(recs, ref_names))
-                        + "\n").encode()
+            recs, pairs = _align(up, pal, rows)
+            sp.set(reads=_n_reads(rows))
+            return _pack_bytes(up, rows, recs, pairs, ref_names)
 
     # ---- connection handling ----
 
@@ -305,15 +308,16 @@ class Bt2Server:
 
 def _align_rows(up, pal, rows, ref_names) -> list[str]:
     """The SAM lines and END READ markers of one pack, in row order."""
-    return _sam_lines(_row_records(up, pal, rows)[0], ref_names)
+    data = _pack_bytes(up, rows, *_align(up, pal, rows), ref_names)
+    return data.decode().split("\n")[:-1]
 
 
-def _row_records(up, pal, rows) -> tuple[list[list], int]:
-    """Each row's AlnRecs (a read's one, a pair's two), in row order, and
-    the pack's reads, a mate counting as one."""
+def _align(up, pal, rows):
+    """The aligners' results of a pack's unpaired rows and of its paired
+    rows, in row order; None where the pack has none."""
     paired_rows = [r for r in rows if r[3] is not None]
     unpaired_rows = [r for r in rows if r[3] is None]
-    recs = pairs = ()
+    recs = pairs = None
     if unpaired_rows:
         b = make_batch([r[0] for r in unpaired_rows],
                        [r[1] for r in unpaired_rows],
@@ -327,16 +331,88 @@ def _row_records(up, pal, rows) -> tuple[list[list], int]:
                         [r[4] for r in paired_rows],
                         [r[5] for r in paired_rows])
         pairs = pal.align_batch(b1, b2)
-    # the aligners' results are lazy: the AlnRecs (LazyRecs.__getitem__,
-    # FastSoA.fill and its MD strings) are built here
+    return recs, pairs
+
+
+def _pack_bytes(up, rows, recs, pairs, ref_names) -> bytes:
+    """The pack's response bytes: each row's SAM lines, then its END READ
+    marker, in row order. The native emitter writes them from the
+    aligners' column stores (`native.sam_emit`, one call for the unpaired
+    rows and one for the pairs), splicing the lines `sam_record` renders
+    for the reads the columns do not hold. Results without a column store
+    (a batch the big index halved, the host path's pairs), -k above 1 and
+    a missing native library take one `sam_record` a record."""
+    mates = _n_reads(rows)
+    if not _columns_hold(up, recs, pairs):
+        with trace.span("srv.records"):
+            row_recs = _row_records(rows, recs, pairs)
+        with trace.span("srv.sam") as sp:
+            data = ("\n".join(_sam_lines(row_recs, ref_names))
+                    + "\n").encode()
+            sp.set(mates=mates, columns=0)
+        return data
+    # the reads outside the columns: materialised and rendered, and the
+    # batches' blobs
     with trace.span("srv.records"):
-        results: dict[int, list] = {}
-        for row, rec in zip(unpaired_rows, recs):
-            results[id(row)] = [rec]
-        for row, (r1, r2) in zip(paired_rows, pairs):
-            results[id(row)] = [r1, r2]
-        return ([results[id(row)] for row in rows],
-                len(unpaired_rows) + 2 * len(paired_rows))
+        sides = []
+        if recs is not None:
+            sides.append((native.sam_side(recs, ref_names), None))
+        if pairs is not None:
+            sides.append((native.sam_side(pairs.r1, ref_names, mates=True),
+                          native.sam_side(pairs.r2, ref_names, mates=True)))
+    with trace.span("srv.sam") as sp:
+        outs = [native.sam_emit(a, b, ref_names=ref_names, markers=True)
+                for a, b in sides]
+        sp.set(mates=mates, columns=sum(s.columns for ab in sides
+                                        for s in ab if s is not None))
+        if len(outs) == 1:
+            return outs[0][0]
+        return _in_row_order(rows, outs)
+
+
+def _n_reads(rows) -> int:
+    """A pack's reads, a mate counting as one."""
+    return sum(1 if r[3] is None else 2 for r in rows)
+
+
+def _columns_hold(up, recs, pairs) -> bool:
+    """Whether the native emitter can write the pack: one record a read
+    (-k 1), each result a LazyRecs (a pair's, one a mate) and the native
+    library built."""
+    return (up.pol.khits == 1
+            and (recs is None or isinstance(recs, LazyRecs))
+            and (pairs is None or (isinstance(pairs, PairedRecs)
+                                   and isinstance(pairs.r1, LazyRecs)
+                                   and isinstance(pairs.r2, LazyRecs)))
+            and native.get_lib() is not None)
+
+
+def _in_row_order(rows, outs) -> bytes:
+    """A pack's bytes from the emitter's two outputs, (bytes, each row's
+    end offset) of the unpaired rows and of the paired rows, in row
+    order."""
+    done = {False: [0, 0], True: [0, 0]}   # kind: rows taken, bytes taken
+    parts = []
+    for paired, run in itertools.groupby(r[3] is not None for r in rows):
+        data, ends = outs[paired]
+        k, b0 = done[paired]
+        k += sum(1 for _ in run)
+        b1 = int(ends[k - 1])
+        parts.append(data[b0:b1])
+        done[paired] = [k, b1]
+    return b"".join(parts)
+
+
+def _row_records(rows, recs, pairs) -> list[list]:
+    """Each row's AlnRecs (a read's one, a pair's two), in row order."""
+    unpaired_rows = [r for r in rows if r[3] is None]
+    paired_rows = [r for r in rows if r[3] is not None]
+    results: dict[int, list] = {}
+    for row, rec in zip(unpaired_rows, recs or ()):
+        results[id(row)] = [rec]
+    for row, (r1, r2) in zip(paired_rows, pairs or ()):
+        results[id(row)] = [r1, r2]
+    return [results[id(row)] for row in rows]
 
 
 def _sam_lines(row_recs, ref_names) -> list[str]:
