@@ -994,12 +994,17 @@ def _sharded_pipeline(cfg: CandGenCfg, devices, didx, dkm, packed, meta,
     dkm (None: no seed table) and mmtab map each distinct device to its
     replica. Every shard is enqueued before any is waited on: the
     pipeline has no host sync, so a card works while the host enqueues the
-    next. Returns each shard's (host result, the event recorded after its
-    copy, or None on the CPU) for `_gather`."""
+    next. Each shard's enqueue is a `cg.shard` span (`shard`; `reads`, its
+    real reads: a padding row's seed interval, meta column 2, is 0, a
+    read's at least 1). Returns each shard's (host result, the event
+    recorded after its copy, or None on the CPU) for `_gather`."""
     pk, mt = _staged(packed, meta, len(devices), devices[0].type == "cuda")
+    reads = (np.count_nonzero(meta[:, 2].reshape(len(devices), -1), axis=1)
+             if trace.enabled() else np.zeros(len(devices), np.int64))
     shards = []
     for s, dev in enumerate(devices):
-        with device_scope(dev):
+        with device_scope(dev), trace.span("cg.shard", shard=s,
+                                           reads=int(reads[s])):
             shards.append(_launch_shard(
                 s, dev, cfg, didx[dev], None if dkm is None else dkm[dev],
                 pk[s], mt[s], mmtab[dev]))
@@ -1261,7 +1266,10 @@ class CandGen:
                 size_mult)
 
     def _launch(self, B0, cfg, dkm, packed, meta, mmtab):
-        with trace.span("cg.enqueue"):
+        """Enqueue a dispatch; its `cg.enqueue` span counts the reads
+        (`reads`, B0) and says which shape took them (`short`: 1 for the
+        general short-read shape, 0 for the fast shape)."""
+        with trace.span("cg.enqueue", reads=B0, short=int(cfg.has_short)):
             return (B0, cfg, _sharded_pipeline(cfg, self.devices,
                                                self._didx, dkm, packed, meta,
                                                self._mmtab(mmtab)))

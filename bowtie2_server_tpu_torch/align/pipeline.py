@@ -813,22 +813,33 @@ class UnpairedAligner:
             # huge-range handling via RowSampler, aligner_sw_driver.h:179).
             # Successful escalations become STICKY (CandGen.fetch) so a
             # repetitive workload sizes itself once and stays there
-            # instead of re-running every batch.
-            active = ~meta["filtered"]
-            for mult in ((2, 4, 16) if self.big else (2, 4)):
-                res = self.candgen.fetch(self.candgen.dispatch(
-                    batch.seqs, batch.quals, meta["lens"],
-                    active & (not self.nofw), active & (not self.norc),
-                    meta["minsc"], self.sc.mm_penalties(),
-                    perfect=meta["perfect"], boost=boost,
-                    seed_skip=seed_skip, size_mult=mult))
-                if not res.overflow:
-                    break
+            # instead of re-running every batch; a multiple at or below
+            # the one the batch already ran at (the sticky one) is not
+            # run again, since it overflows again. The `up.escalate`
+            # span holds the re-runs and the host path: `mult`, the last
+            # multiple run; `host`, the reads the host path took.
+            tried = h[-1]
+            with trace.span("up.escalate", reads=len(batch)) as sp:
+                active = ~meta["filtered"]
+                for mult in ((2, 4, 16) if self.big else (2, 4)):
+                    if mult <= tried:
+                        continue
+                    tried = mult
+                    res = self.candgen.fetch(self.candgen.dispatch(
+                        batch.seqs, batch.quals, meta["lens"],
+                        active & (not self.nofw), active & (not self.norc),
+                        meta["minsc"], self.sc.mm_penalties(),
+                        perfect=meta["perfect"], boost=boost,
+                        seed_skip=seed_skip, size_mult=mult))
+                    if not res.overflow:
+                        break
+                host = res.overflow and not self.big
+                sp.set(mult=tried, host=len(batch) if host else 0)
+                if host:
+                    return self._collect_host(batch, boost, seed_skip)
             if res.overflow:
-                if self.big:
-                    raise BigCapacityError(
-                        "big-index candidate capacity exceeded at 16x")
-                return self._collect_host(batch, boost, seed_skip)
+                raise BigCapacityError(
+                    "big-index candidate capacity exceeded at 16x")
         st = self._build_state(batch, res, meta)
         if self.dp_log is not None:
             # --dp-log on the fused path: the DP problems are the banded

@@ -5,8 +5,9 @@ over the socket gives each pack one queue, pack, records and SAM span,
 nested on the worker's thread, whose packs' reads add up to the reads
 sent; the fetch spans' interior DP problems equal the `--met` TSV's; a
 paired batch gives one `pe.wait` holding its `pe.fast`, `pe.rescue` and
-`pe.decide`, whose counts add up to its pairs; and -t prints its stage
-times from the recorder."""
+`pe.decide`, whose counts add up to its pairs; an enqueue counts its
+reads and its shape, and over a mesh each shard's enqueue is a span of
+its own; and -t prints its stage times from the recorder."""
 import time
 from collections import Counter
 
@@ -180,7 +181,9 @@ def test_server_round_trip_spans(genome, recorder):
         # the aligner's spans of the pack, inside it
         names = Counter(s.name for s in sps)
         assert names["cg.enqueue"] >= 1 and names["cg.fetch"] >= 1
-        assert next(s for s in sps if s.name == "cg.enqueue").attrs == {}
+        # 100 bp reads: the fast shape, every read of the pack enqueued
+        assert next(s for s in sps if s.name == "cg.enqueue").attrs == {
+            "reads": p.attrs["reads"], "short": 0}
         assert names["up.select"] == 1
         sel = next(s for s in sps if s.name == "up.select")
         assert 0 <= sel.attrs["slow"] <= sel.attrs["reads"] \
@@ -336,3 +339,47 @@ def test_paired_batch_spans(genome, on):
     yt = Counter(r1.yt for r1, _ in pairs)
     assert yt == Counter({"CP": fast + cp, "DP": dp, "UP": up})
     assert 0 < r.attrs["hits"] <= r.attrs["jobs"]
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["on", "off"])
+def test_enqueue_shape_and_shard_spans(genome, on):
+    """36 bp reads on a mesh of two logical CPU shards: each dispatch's
+    cg.enqueue counts the batch's reads and the general short-read shape
+    (short 1), and holds one cg.shard a shard on its thread, whose reads
+    add up to the batch's; 100 bp reads take the fast shape (short 0).
+    With the recorder off nothing is recorded."""
+    from bowtie2_server_tpu_torch.align.pipeline import UnpairedAligner
+    from bowtie2_server_tpu_torch.index.fm import FmIndex
+    from bowtie2_server_tpu_torch.io.fastq import make_batch
+    from bowtie2_server_tpu_torch.parallel.mesh import Mesh
+    chroms, base, _ = genome
+    al = UnpairedAligner(FmIndex.load(base),
+                         mesh=Mesh([torch.device("cpu")] * 2))
+    reads = make_reads(chroms, 150, 8)
+    short = [(n, s[:36], q[:36]) for n, s, q in reads[:130]]
+    trace.disable()
+    if on:
+        trace.enable()
+    try:
+        t0 = time.time()
+        for batch in (short, reads[130:]):
+            al.align_batch(make_batch(*zip(*(
+                (n.encode(), s.encode(), q.encode()) for n, s, q in batch))))
+        got = [s for s in trace.spans(t0) if s.name.startswith("cg.")]
+    finally:
+        trace.disable()
+    if not on:
+        assert got == []
+        return
+    enq = [s for s in got if s.name == "cg.enqueue"]
+    assert [s.attrs for s in enq] == [{"reads": 130, "short": 1},
+                                      {"reads": 20, "short": 0}]
+    for e in enq:
+        shards = [s for s in got if s.name == "cg.shard"
+                  and e.t0 <= s.t0 and s.t1 <= e.t1]
+        assert [s.attrs["shard"] for s in shards] == [0, 1]
+        # shards of 128 rows (the dispatch's least): the first takes the
+        # batch's first 128 reads, the second the rest
+        assert [s.attrs["reads"] for s in shards] == \
+            {130: [128, 2], 20: [20, 0]}[e.attrs["reads"]]
+        assert {s.thread for s in shards} == {e.thread}
